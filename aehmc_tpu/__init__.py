@@ -1,7 +1,7 @@
-"""aehmc_tpu: a TPU-native HMC/NUTS sampling framework in JAX.
+"""aehmc_tpu: a chain-batched HMC/NUTS sampling framework in JAX.
 
-A ground-up re-design of the capabilities of ``aesara-devs/aehmc``
-(reference: /root/reference/aehmc) for TPU hardware:
+A ground-up re-design of the capabilities of ``aesara-devs/aehmc`` for
+accelerators (the package name is historical; it runs on an NVIDIA GPU):
 
 - pure-functional kernels over pytrees with explicit counter-based PRNG keys
   (replaces the reference's RandomStream + shared-variable ``updates`` dicts,
@@ -11,12 +11,12 @@ A ground-up re-design of the capabilities of ``aesara-devs/aehmc``
 - first-class multi-chain execution: ``vmap`` over a chain axis, sharded over
   a ``jax.sharding.Mesh`` with cross-chain pooled adaptation (a capability
   the single-chain reference lacks),
-- fused Pallas (Mosaic) TPU kernels for the hot leapfrog path.
+- a float64 NumPy NUTS oracle (``ops``) that checks the transitions.
 
 Public modules mirror the reference layout module-for-module
 (``integrators``, ``metrics``, ``proposals``, ``termination``, ``trajectory``,
 ``hmc``, ``nuts``, ``algorithms``, ``step_size``, ``mass_matrix``,
-``window_adaptation``, ``utils``) plus new TPU-first subsystems
+``window_adaptation``, ``utils``) plus new subsystems
 (``sampling``, ``diagnostics``, ``parallel``, ``models``, ``ops``).
 """
 

@@ -4,7 +4,7 @@ Rewrite of ref algorithms.py: Nesterov/Hoffman-Gelman dual averaging
 (ref algorithms.py:17-117) and Welford's online (co)variance estimator
 (ref algorithms.py:120-204), plus a Chan-et-al. batched/parallel Welford
 merge that the single-chain reference has no use for but which powers
-cross-chain pooled adaptation on a TPU mesh (SURVEY.md §5).
+cross-chain pooled adaptation on a device mesh (SURVEY.md §5).
 """
 
 import math
@@ -118,7 +118,7 @@ def welford_merge(
 
     New capability vs the reference (which is single-chain): lets every chain
     — or every mesh shard — run its own Welford accumulator and combine them
-    exactly at window ends with one all-reduce over ICI.
+    exactly at window ends with one all-reduce across devices.
     """
 
     def merge(a: WelfordState, b: WelfordState) -> WelfordState:
@@ -189,9 +189,9 @@ def welford_update_batch(
     """Fold a whole batch of values (e.g. one position per chain) into a
     Welford state in one shot.
 
-    Computes the batch's own moments with dense reductions (matmul on the MXU
+    Computes the batch's own moments with dense reductions (a matrix product
     for the covariance case) and merges via :func:`welford_merge` — the
-    TPU-friendly alternative to looping the scalar update over chains.  All
+    batched alternative to looping the scalar update over chains.  All
     cross-chain reductions use fixed-tree pairwise order
     (:func:`pairwise_sum`) so the tuned mass matrix is bitwise identical
     across mesh shapes.

@@ -4,128 +4,46 @@ The reference leaves the outer sampling loop (and everything above it)
 to user code — an Aesara ``scan`` plus ``aesara.function`` compilation
 (ref tests/test_hmc.py:314-327, examples/LinearRegression.ipynb).  This
 framework's pitch is that it shouldn't: :func:`sample` is a single entry
-point that dispatches across the three execution paths
+point that dispatches across the two execution paths
 
 - **xla** — the generic JAX kernels, one chain (1-D position) or an
   independently-warmed chain batch,
 - **pooled** — a chain batch with pooled cross-chain adaptation, the
-  chain axis sharded over a ``jax.sharding.Mesh`` (the production
-  default for 2-D positions),
-- **fused** — the Pallas megakernel drivers (transposed chains-in-lanes
-  NUTS / ChEES transitions with in-kernel PRNG; see
-  :mod:`aehmc_tpu.ops`),
+  chain axis sharded over a ``jax.sharding.Mesh`` (the default for 2-D
+  positions),
 
 and across the six algorithms (``nuts``, ``hmc``, ``chees``, ``meads``,
 ``ghmc``, ``mala``), returning one :class:`~aehmc_tpu.sampling.SampleResult`
 shape regardless of the route taken.
 
-The fused path accepts any JAX-traceable ``logprob_fn``: if no
-transposed potential is supplied, one is derived with
-``jax.vmap(logprob_fn, in_axes=1)`` and differentiated in-kernel with
-``jax.vjp`` (the "generic megakernel" path, PERF.md round 2).  For hot
-models, pass ``potential_fn_t`` / ``potential_and_grad_t`` (the
-transposed contract of
-:func:`aehmc_tpu.ops.nuts_fused_small.make_fused_nuts_transition_small`)
-— the library's model builders (:mod:`aehmc_tpu.models`) provide both.
+Both paths compile to plain XLA.  Hand-written Pallas kernels for the
+NUTS, ChEES and GHMC transitions were measured against these paths on an
+NVIDIA H100 and lost end to end (PERF.md), so there is no kernel route.
 """
 
-from typing import Callable, Optional, Sequence
+from typing import Callable
 
 import jax
 import jax.numpy as jnp
 
 from aehmc_tpu import sampling
 from aehmc_tpu.sampling import SampleResult
-from aehmc_tpu.types import Diagnostics
 
 ALGORITHMS = ("nuts", "hmc", "chees", "meads", "ghmc", "mala")
-PATHS = ("auto", "xla", "pooled", "fused")
-
-# algorithms with a fused megakernel transition (ops/nuts_fused_small.py,
-# ops/chees_fused.py, ops/ghmc_fused.py); the rest raise a pointed error
-# on path="fused"
-_FUSED_ALGORITHMS = ("nuts", "chees", "meads", "mala", "ghmc")
+PATHS = ("auto", "xla", "pooled")
 
 
-def _resolve_path(path, initial_position, potential_fn_t,
-                  potential_and_grad_t, algorithm):
+def _resolve_path(path, initial_position):
     if path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+        raise ValueError(
+            f"path must be one of {PATHS}, got {path!r} (there is no "
+            "kernel route: the measured XLA paths are faster)"
+        )
     if path != "auto":
         return path
     if jnp.ndim(initial_position) <= 1:
         return "xla"
-    if (
-        (potential_fn_t is not None or potential_and_grad_t is not None)
-        and algorithm in _FUSED_ALGORITHMS
-    ):
-        return "fused"
     return "pooled"
-
-
-def _generic_fused_binding(logprob_fn: Callable, dim: int):
-    """Transposed-batch potential + data rows from a per-chain logprob.
-
-    ``q_t`` is (dim, block); vmapping over axis 1 yields the (block,)
-    potential row the transposed kernels consume.  Array constants the
-    user's logprob closes over (data matrices, prior scales, ...) must
-    become kernel INPUTS — ``pallas_call`` rejects captured array
-    constants — so they are hoisted with ``jax.closure_convert``,
-    shipped as flat (1, n) data rows, and reshaped back inside the
-    potential.  The hoist is re-derived at each trace (tracing is
-    deterministic, so the constant order is stable across the probe and
-    the kernel trace).
-    """
-
-    def raw(q_t):
-        return -jax.vmap(logprob_fn, in_axes=1)(q_t)
-
-    probe = jnp.zeros((dim, 2), jnp.float32)
-    consts = [jnp.asarray(c) for c in jax.make_jaxpr(raw)(probe).consts]
-    specs = [(c.shape, c.dtype) for c in consts]
-    data = [c.reshape(1, -1) for c in consts]
-
-    def potential_t(q_t, *rows):
-        closed = jax.make_jaxpr(raw)(q_t)
-        if len(closed.consts) != len(rows):
-            raise ValueError(
-                "the generic fused potential re-traced to a different "
-                f"constant count ({len(closed.consts)} vs {len(rows)}) — "
-                "pass an explicit potential_fn_t/data binding instead"
-            )
-        args = [
-            r.reshape(shape).astype(dtype)
-            for r, (shape, dtype) in zip(rows, specs)
-        ]
-        (out,) = jax.core.eval_jaxpr(closed.jaxpr, args, q_t)
-        return out
-
-    return potential_t, data
-
-
-def _fused_nuts_result(out) -> SampleResult:
-    """Adapt the fused driver's raw return to the SampleResult contract.
-
-    Fused stats columns are ``[energy, accept, doublings, leaves,
-    diverging, turning]`` (ops/nuts_fused.py) — exactly the fields of
-    :class:`~aehmc_tpu.types.Diagnostics`.
-    """
-    final_positions, positions, stats, eps, imm = out
-    diag = Diagnostics(
-        acceptance_probability=stats[..., 1],
-        num_doublings=stats[..., 2].astype(jnp.int32),
-        is_turning=stats[..., 5] > 0.5,
-        is_diverging=stats[..., 4] > 0.5,
-        energy=stats[..., 0],
-        num_integration_steps=stats[..., 3].astype(jnp.int32),
-    )
-    return SampleResult(
-        final_state=final_positions,
-        positions=positions,
-        diagnostics=diag,
-        step_size=eps,
-        inverse_mass_matrix=imm,
-    )
 
 
 def sample(
@@ -138,9 +56,6 @@ def sample(
     algorithm: str = "nuts",
     path: str = "auto",
     mesh=None,
-    data: Sequence[jax.Array] = (),
-    potential_fn_t: Optional[Callable] = None,
-    potential_and_grad_t: Optional[Callable] = None,
     **kwargs,
 ) -> SampleResult:
     """Sample from ``logprob_fn`` — warmup + sampling in one call.
@@ -152,10 +67,7 @@ def sample(
         the same key reproduces the run bit for bit.
     logprob_fn
         ``position -> scalar log density`` (the reference's model
-        contract, ref README.md:35-37).  May be ``None`` only on the
-        fused NUTS/MALA routes with an explicit ``potential_fn_t`` /
-        ``potential_and_grad_t`` binding (the megakernel consumes the
-        transposed potential directly).
+        contract, ref README.md:35-37).
     initial_position
         ``(dim,)`` runs ONE chain on the XLA path; ``(chains, dim)``
         runs a chain batch (pooled cross-chain adaptation by default).
@@ -167,20 +79,17 @@ def sample(
         One of ``nuts | hmc | chees | meads | ghmc | mala``.
     path
         ``auto`` (default) picks: 1-D position → ``xla``; 2-D →
-        ``pooled``; 2-D with a transposed potential supplied →
-        ``fused``.  Set explicitly to force a route.
+        ``pooled``.  ``xla`` with a 2-D position runs independently
+        warmed chains (``chees``/``meads`` are ensemble methods and
+        always pool).
     mesh
         A ``jax.sharding.Mesh`` to shard the chain axis over (pooled
-        and fused paths).
-    data, potential_fn_t, potential_and_grad_t
-        Fused-path model bindings (see :mod:`aehmc_tpu.ops`).  If only
-        ``logprob_fn`` is given and ``path="fused"``, a generic
-        transposed potential is derived and differentiated in-kernel.
+        path; by default every attached device).
     **kwargs
-        Forwarded to the chosen driver (e.g. ``sort_by_depth``,
-        ``collect_dtype``, ``per_chain_step_size``, ``block_chains``,
+        Forwarded to the chosen driver (e.g. ``per_chain_step_size``,
         ``checkpoint_every``/``checkpoint_path``/``resume``,
-        ``max_num_expansions``, ``target_acceptance_rate``).
+        ``max_num_expansions``, ``target_acceptance_rate``,
+        ``meads_recompute_every``).
 
     Returns
     -------
@@ -188,27 +97,14 @@ def sample(
         ``(final_state, positions, diagnostics, step_size,
         inverse_mass_matrix)`` with ``positions`` of shape
         ``(draws, dim)`` (single chain) or ``(draws, chains, dim)``
-        (pooled/fused batch; independent XLA chains stack
+        (pooled batch; independent XLA chains stack
         ``(chains, draws, dim)``).
     """
     if algorithm not in ALGORITHMS:
         raise ValueError(
             f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}"
         )
-    route = _resolve_path(
-        path, initial_position, potential_fn_t, potential_and_grad_t,
-        algorithm,
-    )
-    if logprob_fn is None and not (
-        route == "fused"
-        and algorithm in ("nuts", "mala", "ghmc")
-        and (potential_fn_t is not None or potential_and_grad_t is not None)
-    ):
-        raise ValueError(
-            "logprob_fn may be None only on the fused NUTS/MALA/GHMC "
-            "routes with an explicit potential_fn_t/potential_and_grad_t "
-            "binding"
-        )
+    route = _resolve_path(path, initial_position)
 
     if route == "xla":
         if jnp.ndim(initial_position) <= 1:
@@ -221,15 +117,13 @@ def sample(
                 rng_key, logprob_fn, initial_position,
                 num_samples, num_warmup, algorithm=algorithm, **kwargs,
             )
-        if algorithm in ("chees", "meads"):
-            # ensemble methods have no independent-chain mode; their XLA
-            # route IS the pooled driver
-            route = "pooled"
-        else:
+        if algorithm not in ("chees", "meads"):
             return sampling.sample_chains(
                 rng_key, logprob_fn, initial_position,
                 num_samples, num_warmup, algorithm=algorithm, **kwargs,
             )
+        # ensemble methods have no independent-chain mode; their XLA
+        # route IS the pooled driver
 
     if jnp.ndim(initial_position) != 2:
         raise ValueError(
@@ -237,160 +131,10 @@ def sample(
             f"shape {jnp.shape(initial_position)}"
         )
 
-    if route == "pooled":
-        from aehmc_tpu.parallel.pooled import sample_sharded
+    from aehmc_tpu.parallel.pooled import sample_sharded
 
-        return sample_sharded(
-            rng_key, logprob_fn, initial_position,
-            num_samples, num_warmup,
-            algorithm=algorithm, mesh=mesh, **kwargs,
-        )
-
-    # route == "fused"
-    if algorithm not in _FUSED_ALGORITHMS:
-        raise ValueError(
-            f"no fused megakernel for algorithm={algorithm!r} (fused paths: "
-            f"{_FUSED_ALGORITHMS}); use path='pooled' — plain HMC runs the "
-            "XLA kernels (its fused analog with adaptive trajectory "
-            "lengths is algorithm='chees')"
-        )
-    if potential_fn_t is None:
-        if potential_and_grad_t is None:
-            potential_fn_t, data = _generic_fused_binding(
-                logprob_fn, initial_position.shape[1]
-            )
-        else:
-            def potential_fn_t(q_t, *rows):  # noqa: F811 — grad path only
-                return potential_and_grad_t(q_t, *rows)[0]
-
-    if algorithm == "meads":
-        from aehmc_tpu.ops.ghmc_fused import make_fused_meads_transition
-        from aehmc_tpu.parallel.pooled import sample_sharded
-
-        kernel_kwargs = {
-            k: kwargs.pop(k)
-            for k in ("block_chains", "interpret", "use_internal_prng")
-            if k in kwargs
-        }
-        if "divergence_threshold" in kwargs:
-            kernel_kwargs["divergence_threshold"] = kwargs[
-                "divergence_threshold"
-            ]
-        kwargs.setdefault("meads_recompute_every", 8)
-        # Single-host, non-checkpointed runs take the MULTI-DRAW segment
-        # megakernel (one dispatch per recompute_every-draw segment per
-        # chain block, state resident in VMEM between draws — measured
-        # 47.4M vs 33.7M evals/s for the per-draw transition at the
-        # 10k-chain flagship).  Sharded or checkpointed runs keep the
-        # per-draw fused transition (the segment kernel has no shard_map
-        # adapter and by construction cannot checkpoint mid-segment).
-        if mesh is None and not kwargs.get("checkpoint_every"):
-            from aehmc_tpu.ops.ghmc_fused import make_fused_meads_segment
-
-            segment_fn = make_fused_meads_segment(
-                potential_fn_t, tuple(data),
-                potential_and_grad_t=potential_and_grad_t,
-                **kernel_kwargs,
-            )
-            return sample_sharded(
-                rng_key, logprob_fn, initial_position,
-                num_samples, num_warmup,
-                algorithm="meads", mesh=mesh,
-                meads_segment_fn=segment_fn,
-                **kwargs,
-            )
-        transition_fn = make_fused_meads_transition(
-            potential_fn_t, tuple(data),
-            potential_and_grad_t=potential_and_grad_t,
-            mesh=mesh,
-            num_chains=(
-                initial_position.shape[0] if mesh is not None else None
-            ),
-            **kernel_kwargs,
-        )
-        return sample_sharded(
-            rng_key, logprob_fn, initial_position,
-            num_samples, num_warmup,
-            algorithm="meads", mesh=mesh,
-            meads_transition_fn=transition_fn,
-            **kwargs,
-        )
-
-    if algorithm in ("mala", "ghmc"):
-        from aehmc_tpu.ops.fused_driver import sample_fused_ghmc
-
-        if mesh is not None:
-            raise ValueError(
-                f"the fused {algorithm.upper()} route is single-host for "
-                "now — pass path='pooled' with mesh= for the sharded XLA "
-                "kernels"
-            )
-        if algorithm == "mala":
-            alpha = 0.0
-            if "ghmc_alpha" in kwargs:
-                raise TypeError(
-                    "ghmc_alpha= with algorithm='mala' (MALA IS alpha=0); "
-                    "use algorithm='ghmc' for persistent momentum"
-                )
-        else:
-            alpha = kwargs.pop("ghmc_alpha", 0.9)
-        out = sample_fused_ghmc(
-            rng_key,
-            potential_fn_t,
-            tuple(data),
-            jnp.asarray(initial_position, jnp.float32),
-            num_samples, num_warmup,
-            alpha=alpha,
-            potential_and_grad_t=potential_and_grad_t,
-            **kwargs,
-        )
-        return _fused_nuts_result(out)
-
-    if algorithm == "chees":
-        from aehmc_tpu.ops.chees_fused import make_fused_chees_kernel
-        from aehmc_tpu.parallel.pooled import sample_sharded
-
-        kernel_kwargs = {
-            k: kwargs.pop(k)
-            for k in (
-                "block_chains", "interpret", "use_internal_prng",
-                "step_size_factors",
-            )
-            if k in kwargs
-        }
-        if "divergence_threshold" in kwargs:
-            # the threshold parameterizes both the kernel and the driver
-            kernel_kwargs["divergence_threshold"] = kwargs[
-                "divergence_threshold"
-            ]
-        kernel_fn = make_fused_chees_kernel(
-            potential_fn_t, tuple(data),
-            potential_and_grad_t=potential_and_grad_t,
-            mesh=mesh,
-            num_chains=(
-                initial_position.shape[0] if mesh is not None else None
-            ),
-            **kernel_kwargs,
-        )
-        return sample_sharded(
-            rng_key, logprob_fn, initial_position,
-            num_samples, num_warmup,
-            algorithm="chees", mesh=mesh, chees_kernel_fn=kernel_fn,
-            **kwargs,
-        )
-
-    from aehmc_tpu.ops.fused_driver import sample_fused_adaptive
-
-    kwargs.setdefault("max_num_expansions", 6)
-    out = sample_fused_adaptive(
-        rng_key,
-        None,  # standard-layout potential unused: transposed path below
-        tuple(data),
-        jnp.asarray(initial_position, jnp.float32),
+    return sample_sharded(
+        rng_key, logprob_fn, initial_position,
         num_samples, num_warmup,
-        potential_fn_t=potential_fn_t,
-        potential_and_grad_t=potential_and_grad_t,
-        mesh=mesh,
-        **kwargs,
+        algorithm=algorithm, mesh=mesh, **kwargs,
     )
-    return _fused_nuts_result(out)

@@ -3,7 +3,7 @@
 Implements the ChEES criterion of Hoffman, Radul & Sountsov (2021), "An
 Adaptive-MCMC Scheme for Setting Trajectory Lengths in Hamiltonian Monte
 Carlo" (AISTATS).  This sampler is a *new capability* beyond the reference —
-it is the TPU-native alternative to NUTS for chain-parallel execution:
+it is the regular alternative to NUTS for chain-parallel execution:
 
 - every chain takes the SAME number of leapfrog steps per iteration (a
   shared Halton-jittered trajectory length), so there is no per-chain
@@ -17,7 +17,7 @@ it is the TPU-native alternative to NUTS for chain-parallel execution:
   acceptance rate, and the diagonal mass matrix by pooled Welford windows.
 
 All cross-chain reductions are means over the leading chain axis: sharded
-over a mesh they lower to ICI collectives.
+over a mesh they lower to cross-device collectives.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -87,22 +87,8 @@ def new_kernel(
     logprob_fn: Callable,
     divergence_threshold: float = 1000.0,
     integrator: Callable = velocity_verlet,
-    integrate_fn: Callable = None,
 ) -> Callable:
     """Build the batched ChEES-HMC transition.
-
-    Parameters
-    ----------
-    integrate_fn
-        Optional fused whole-trajectory integrator,
-        ``(q, p, step_size, num_steps, inverse_mass_matrix) -> (q', p')``
-        over the chain batch (e.g.
-        :func:`aehmc_tpu.ops.fused_hmc.fused_logistic_hmc_tpu` bound to its
-        data).  It receives the *current* inverse mass matrix so mass
-        adaptation stays consistent with the integrator.  When given it
-        replaces the per-chain autodiff leapfrog loop; final
-        energies/gradients are recomputed with one batched ``logprob_fn``
-        evaluation.
 
     Returns ``step(rng_key, states, step_size, num_integration_steps,
     inverse_mass_matrix) -> (ChainState, CheesInfo)`` where ``states`` has a
@@ -154,38 +140,9 @@ def new_kernel(
             return init, final, p_accept, diverging, new_energy, energy
 
         momentum_keys = jax.random.split(momentum_key, num_chains)
-        if integrate_fn is None:
-            init, final, p_accept, diverging, new_energy, energy = jax.vmap(
-                propose
-            )(momentum_keys, states)
-        else:
-            momenta = jax.vmap(momentum_generator)(momentum_keys)
-            init = IntegratorState(
-                position=states.position,
-                momentum=momenta,
-                potential_energy=states.potential_energy,
-                potential_energy_grad=states.potential_energy_grad,
-            )
-            q_final, p_final = integrate_fn(
-                states.position, momenta, step_size, num_integration_steps,
-                inverse_mass_matrix,
-            )
-            final_u, final_grad = jax.vmap(
-                jax.value_and_grad(potential_fn)
-            )(q_final)
-            final = IntegratorState(
-                position=q_final,
-                momentum=-p_final,
-                potential_energy=final_u,
-                potential_energy_grad=final_grad,
-            )
-            ke_batch = jax.vmap(kinetic_energy_fn)
-            energy = init.potential_energy + ke_batch(init.momentum)
-            new_energy = final.potential_energy + ke_batch(final.momentum)
-            delta = energy - new_energy
-            delta = jnp.where(jnp.isnan(delta), -jnp.inf, delta)
-            diverging = jnp.abs(delta) > divergence_threshold
-            p_accept = jnp.clip(jnp.exp(delta), 0.0, 1.0)
+        init, final, p_accept, diverging, new_energy, energy = jax.vmap(
+            propose
+        )(momentum_keys, states)
 
         do_accept = jax.random.bernoulli(accept_key, p_accept, (num_chains,))
         pick = lambda n, o: jnp.where(  # noqa: E731
@@ -289,11 +246,9 @@ def warmup_hooks(
     max_num_integration_steps: int = 1024,
     learning_rate: float = 0.025,
     integrator: Callable = velocity_verlet,
-    integrate_fn: Callable = None,
     divergence_threshold: float = 1000.0,
     search_initial_step_size: bool = True,
     dtype=None,
-    kernel_fn: Callable = None,
 ) -> Tuple[Callable, Callable, Callable]:
     """Segmentable ChEES warmup: ``(init, segment, finish)``.
 
@@ -303,17 +258,9 @@ def warmup_hooks(
     step range in slices reproduces the single-scan run bit for bit
     (warmup checkpointing rides on this).  ``finish`` returns a
     :class:`CheesWarmupResult`.
-
-    ``kernel_fn`` replaces the ENTIRE transition (momentum draw,
-    trajectory, MH accept) with a custom implementation of the same
-    ``(key, states, eps, num_steps, imm) -> (ChainState, CheesInfo)``
-    signature — the hook for the fused Pallas transition
-    (:func:`aehmc_tpu.ops.chees_fused.make_fused_chees_kernel`);
-    ``logprob_fn``/``integrator``/``integrate_fn`` are ignored when it is
-    given.
     """
-    kernel = kernel_fn or new_kernel(
-        logprob_fn, divergence_threshold, integrator, integrate_fn
+    kernel = new_kernel(
+        logprob_fn, divergence_threshold, integrator
     )
     da_init, da_update = dual_averaging_adaptation(target_acceptance_rate)
     mm_init, _, mm_final = covariance_adaptation(False)
@@ -461,10 +408,8 @@ def warmup(
     max_num_integration_steps: int = 1024,
     learning_rate: float = 0.025,
     integrator: Callable = velocity_verlet,
-    integrate_fn: Callable = None,
     divergence_threshold: float = 1000.0,
     search_initial_step_size: bool = True,
-    kernel_fn: Callable = None,
 ) -> CheesWarmupResult:
     """Jointly adapt (step size, trajectory length, diag mass matrix).
 
@@ -487,11 +432,9 @@ def warmup(
         max_num_integration_steps=max_num_integration_steps,
         learning_rate=learning_rate,
         integrator=integrator,
-        integrate_fn=integrate_fn,
         divergence_threshold=divergence_threshold,
         search_initial_step_size=search_initial_step_size,
         dtype=initial_states.position.dtype,
-        kernel_fn=kernel_fn,
     )
     wcarry = init(rng_key, initial_states)
     wcarry, _ = segment(wcarry, jnp.arange(num_steps, dtype=jnp.int32))
@@ -509,11 +452,9 @@ def sample(
     *,
     max_num_integration_steps: int = 1024,
     integrator: Callable = velocity_verlet,
-    integrate_fn: Callable = None,
     divergence_threshold: float = 1000.0,
     collect_positions: bool = True,
     collect_dtype=None,
-    kernel_fn: Callable = None,
     _keys: jax.Array = None,
     _step_offset=0,
 ):
@@ -523,10 +464,9 @@ def sample(
     (draws, chains, dim) and ``infos`` a :class:`CheesSampleInfo` — the
     per-chain divergence flags and energies the kernel computes are kept,
     so production ChEES runs report divergences like every other sampler.
-    ``kernel_fn`` replaces the whole transition (see :func:`warmup_hooks`).
     """
-    kernel = kernel_fn or new_kernel(
-        logprob_fn, divergence_threshold, integrator, integrate_fn
+    kernel = new_kernel(
+        logprob_fn, divergence_threshold, integrator
     )
     dtype = states.position.dtype
 
@@ -545,9 +485,8 @@ def sample(
         if not collect_positions:
             out = None
         elif collect_dtype is not None:
-            # narrowed draw storage (see ops/fused_driver collect_dtype):
-            # the f32 stacked-output copy is the cost, a bf16 cast+store
-            # is free and halves the history's HBM footprint
+            # narrowed draw storage: halves the history's memory;
+            # the chain state stays at full precision
             out = new_states.position.astype(collect_dtype)
         else:
             out = new_states.position

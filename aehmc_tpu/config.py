@@ -11,7 +11,7 @@ Dtype policy (SURVEY.md §7 "numerics policy")
 ---------------------------------------------
 - The library is **dtype-polymorphic**: every kernel computes at the dtype
   of the position you hand it and never upcasts.  f32 positions give an f32
-  chain (the production TPU path — all BENCH/PERF numbers); f64 positions
+  chain (the production accelerator path); f64 positions
   give an f64 chain (requires ``jax.config.update("jax_enable_x64", True)``).
 - Energies, log-weights and adaptation statistics are carried at the chain
   dtype.  The statistical test gates (MCSE, KS, warmup quality, exact regime
@@ -22,9 +22,9 @@ Dtype policy (SURVEY.md §7 "numerics policy")
   runs in log space where f32 is ample.
 - Where f64 *does* matter: dense mass-matrix Cholesky on ill-conditioned
   posteriors (condition number ≳ 1e6 exceeds f32's ~7 digits) — warm up in
-  f64 on such targets, or precondition.  MXU matmuls inside the Pallas
-  kernels use bf16 passes (JAX default precision); the Metropolis correction
-  absorbs the rounding (PERF.md "fused" sections).
+  f64 on such targets, or precondition.  On the GPU an f32 matrix product
+  may run in TF32 at JAX's default precision; the Metropolis correction is
+  exact for the potential as computed.
 - PRNG note: ``jax.random.normal`` draws *different* streams at f32 vs f64
   for the same key, so per-seed pinned tests record expectations per dtype.
 """

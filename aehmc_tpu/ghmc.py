@@ -10,7 +10,7 @@ transition with the momentum *carried* between transitions:
   persistent momentum).
 
 Like ChEES-HMC this is trajectory-regular (every chain does the same number
-of leapfrog steps per transition), so it batches perfectly on TPU; it is
+of leapfrog steps per transition), so it batches perfectly; it is
 also the transition kernel underlying MEADS (Hoffman & Sountsov 2022),
 planned for a later round (ROADMAP.md).
 """

@@ -1,6 +1,6 @@
 """Symplectic integrators for Hamiltonian dynamics.
 
-TPU-native rewrite of ref integrators.py.  The reference caches the potential
+Rewrite of ref integrators.py.  The reference caches the potential
 gradient in the state so each leapfrog step costs exactly one fresh logprob
 gradient (ref integrators.py:64-66); we keep that invariant with
 ``jax.value_and_grad``.  The reference obtains the position drift as the

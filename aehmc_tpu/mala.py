@@ -1,7 +1,7 @@
 """Metropolis-adjusted Langevin algorithm (MALA).
 
 New capability beyond the reference: a one-gradient-per-step kernel that is
-the natural baseline/companion to HMC on TPU — fully regular computation
+the natural baseline/companion to HMC on accelerators — fully regular computation
 (no trajectories at all), ideal for very high chain counts or as a warmup
 explorer.  Shares the framework's conventions: pure function over pytrees,
 ``ChainState`` in/out, ``Diagnostics`` info, counter-based keys.

@@ -3,8 +3,8 @@
 Tuning-free generalized HMC following Hoffman & Sountsov (2022, AISTATS
 "Tuning-Free Generalized Hamiltonian Monte Carlo").  New capability beyond
 the reference (which has no adaptive GHMC; ref has only DA window adaptation,
-ref window_adaptation.py) and the natural fleet-scale sampler for TPU chain
-meshes: like ChEES it is trajectory-regular (every chain does exactly one
+ref window_adaptation.py) and a natural fleet-scale sampler for large chain
+batches: like ChEES it is trajectory-regular (every chain does exactly one
 leapfrog step per transition — zero per-chain control flow, no straggler
 lanes), and it removes dual averaging entirely.
 
@@ -37,7 +37,7 @@ cheaper trace-ratio estimate — the power iteration is tighter and its cost
 is negligible next to the gradient.
 
 All cross-chain reductions are means/matmuls over the chain axis: sharded
-over a mesh they lower to ICI collectives.
+over a mesh they lower to cross-device collectives.
 """
 
 from typing import Callable, NamedTuple, Tuple
@@ -54,7 +54,7 @@ from aehmc_tpu.algorithms import (
 from aehmc_tpu.types import Diagnostics, IntegratorState
 
 # Below this dimension the (dim, dim) covariance is formed explicitly
-# (one chunked MXU Gram matmul) and the power iteration runs on it —
+# (one chunked Gram matrix product) and the power iteration runs on it —
 # d*d matvecs instead of 2 * num_iters full passes over the (chains, dim)
 # batch.  Above it, fall back to the matrix-free contraction.
 _EXPLICIT_COV_MAX_DIM = 512
@@ -88,7 +88,7 @@ def _lmax_cov(
     fixed reduction order (pairwise tree / fixed-chunk Gram) so estimated
     hyperparameters are bitwise mesh-shape-invariant.  For
     dim <= ``_EXPLICIT_COV_MAX_DIM`` the (dim, dim) second-moment matrix
-    is formed once with a chunked MXU matmul and the power iteration runs
+    is formed once with a chunked matrix product and the power iteration runs
     on it (O(n d^2) once + O(num_iters d^2)); otherwise the iteration is
     matrix-free (O(num_iters n d)).
     """
@@ -184,7 +184,6 @@ def new_kernel(
     divergence_threshold: float = 1000.0,
     step_size_multiplier: float = 0.5,
     recompute_every: int = 1,
-    transition_fn: Callable = None,
 ) -> Callable:
     """Build the MEADS transition over a full chain batch.
 
@@ -203,15 +202,8 @@ def new_kernel(
     per-step scheme (Hoffman & Sountsov 2022), just with a stale-by-at-
     most-k snapshot.  Statistical gates (tests/test_meads.py) pin the
     posterior for both settings.
-
-    ``transition_fn`` swaps in a custom fold transition — pass
-    :func:`aehmc_tpu.ops.ghmc_fused.make_fused_meads_transition` to run
-    the transition as one VMEM-resident Pallas megakernel under the same
-    complementary-fold estimation.
     """
-    transition = transition_fn or _make_fold_transition(
-        logprob_fn, divergence_threshold
-    )
+    transition = _make_fold_transition(logprob_fn, divergence_threshold)
 
     def step(
         rng_key: jax.Array, carry: MeadsCarry
@@ -319,8 +311,6 @@ def sample(
     step_size_multiplier: float = 0.5,
     collect_positions: bool = True,
     recompute_every: int = 1,
-    transition_fn: Callable = None,
-    segment_transition_fn: Callable = None,
 ):
     """Burn-in + sampling, one jitted program.
 
@@ -328,15 +318,7 @@ def sample(
     ``num_folds`` and at least 2 chains per fold.  Adaptation runs through
     both phases (it is part of the kernel); ``num_warmup`` draws are simply
     discarded.  ``recompute_every`` amortizes hyperparameter estimation
-    (see :func:`new_kernel`); ``transition_fn`` swaps in a custom fold
-    transition (the fused megakernel:
-    :func:`aehmc_tpu.ops.ghmc_fused.make_fused_meads_transition`).
-    ``segment_transition_fn`` swaps in a custom SEGMENT — the whole
-    ``recompute_every``-draw inner loop as one call
-    (``segment(key, fold_states, hyper, num_draws, collect)``; the
-    multi-draw megakernel:
-    :func:`aehmc_tpu.ops.ghmc_fused.make_fused_meads_segment`) — and
-    forces the segmented driver.
+    (see :func:`new_kernel`).
 
     Returns ``(final_states, positions, infos, hyper)`` with positions
     (draws, chains, dim), ``infos`` a stacked :class:`Diagnostics`, and
@@ -350,7 +332,7 @@ def sample(
         )
     init_key, warm_key, sample_key = jax.random.split(rng_key, 3)
 
-    if recompute_every > 1 or segment_transition_fn is not None:
+    if recompute_every > 1:
         return _sample_segmented(
             init_key, warm_key, sample_key,
             logprob_fn, initial_positions, num_samples, num_warmup,
@@ -359,8 +341,6 @@ def sample(
             step_size_multiplier=step_size_multiplier,
             collect_positions=collect_positions,
             recompute_every=recompute_every,
-            transition_fn=transition_fn,
-            segment_transition_fn=segment_transition_fn,
         )
 
     carry = init_carry(
@@ -369,7 +349,6 @@ def sample(
     )
     kernel = new_kernel(
         logprob_fn, num_folds, divergence_threshold, step_size_multiplier,
-        transition_fn=transition_fn,
     )
 
     def burn_step(carry, key):
@@ -398,8 +377,7 @@ def _sample_segmented(
     init_key, warm_key, sample_key,
     logprob_fn, initial_positions, num_samples, num_warmup, *,
     num_folds, divergence_threshold, step_size_multiplier,
-    collect_positions, recompute_every, transition_fn=None,
-    segment_transition_fn=None,
+    collect_positions, recompute_every,
 ):
     """Amortized MEADS as NESTED scans: the outer scan re-estimates the
     hyperparameters once per ``recompute_every``-draw segment, the inner
@@ -427,9 +405,7 @@ def _sample_segmented(
 
     states = init_states(init_key, initial_positions, logprob_fn)
     fold_states = jax.tree_util.tree_map(fold, states)
-    transition = transition_fn or _make_fold_transition(
-        logprob_fn, divergence_threshold
-    )
+    transition = _make_fold_transition(logprob_fn, divergence_threshold)
 
     def estimate(fold_states):
         flat = jax.tree_util.tree_map(unfold, fold_states)
@@ -439,15 +415,6 @@ def _sample_segmented(
 
     def segment(fold_states, seg_keys, collect):
         hyper = estimate(fold_states)
-        if segment_transition_fn is not None:
-            # the whole fixed-hyper segment as ONE call (the multi-draw
-            # megakernel); it derives its per-draw streams from the
-            # first segment key
-            fold_states, outs = segment_transition_fn(
-                seg_keys[0], fold_states, hyper,
-                seg_keys.shape[0], collect,
-            )
-            return fold_states, outs, hyper
 
         def inner(fs, key):
             fs2, infos = transition(key, fs, hyper)

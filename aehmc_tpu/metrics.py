@@ -1,14 +1,13 @@
-"""Euclidean (Gaussian) metric for Hamiltonian dynamics on TPU.
+"""Euclidean (Gaussian) metric for Hamiltonian dynamics.
 
 Rewrite of ref metrics.py:10-106.  Dispatch on the number of dimensions of
 the inverse mass matrix happens at *trace* time (shapes are static under
 ``jit``), so each case compiles to straight-line XLA:
 
 - scalar: elementwise ops,
-- diagonal (1-D): elementwise ops on the VPU,
+- diagonal (1-D): elementwise ops,
 - dense (2-D): Cholesky + triangular solve via ``jax.scipy.linalg`` and
-  matvecs that lower onto the MXU when the chain axis is vmapped (a batch of
-  matvecs is one matmul).
+  matvecs that become one matrix product when the chain axis is vmapped.
 
 Momentum draws use counter-based ``jax.random`` keys instead of the
 reference's RandomStream shared state (ref metrics.py:65-68).

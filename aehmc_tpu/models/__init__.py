@@ -14,16 +14,10 @@ from aehmc_tpu.models.gaussian import (  # noqa: F401
 )
 from aehmc_tpu.models.hierarchical import (  # noqa: F401
     eight_schools,
-    eight_schools_pg_t,
-    eight_schools_t,
     neals_funnel,
-    neals_funnel_pg_t,
-    neals_funnel_t,
 )
 from aehmc_tpu.models.regression import (  # noqa: F401
     linear_regression,
     logistic_regression,
     logistic_regression_data,
-    logistic_regression_pg_t,
-    logistic_regression_t,
 )

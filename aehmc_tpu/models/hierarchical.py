@@ -56,137 +56,4 @@ def eight_schools(non_centered: bool = True) -> Tuple[Callable, jnp.ndarray]:
     return logprob_fn, example_position
 
 
-def neals_funnel_t(dim: int = 10) -> Tuple[Callable, jnp.ndarray]:
-    """Neal's funnel as a TRANSPOSED batched potential for the
-    chains-in-lanes megakernel (:mod:`aehmc_tpu.ops.nuts_fused_small`):
-    ``potential_t(q_t)`` takes (dim, block) and returns (block,).
-
-    Returns ``(potential_t, example_position)`` (example in the standard
-    per-chain layout).
-    """
-
-    def potential_t(q_t):
-        v = q_t[0:1, :]
-        x = q_t[1:, :]
-        neg_lp_v = 0.5 * (v / 3.0) ** 2
-        neg_lp_x = (
-            jnp.sum(0.5 * x * x / jnp.exp(v), axis=0, keepdims=True)
-            + (dim - 1) * 0.5 * v
-        )
-        return (neg_lp_v + neg_lp_x)[0]
-
-    return potential_t, jnp.zeros(dim)
-
-
-def eight_schools_t() -> Tuple[Callable, tuple, jnp.ndarray]:
-    """Non-centered eight schools as a TRANSPOSED batched potential for
-    the chains-in-lanes megakernel; position rows are
-    ``[mu, log_tau, theta_raw_1..8]`` (dim = 10).
-
-    Returns ``(potential_t, data, example_position)`` — the school
-    observations/scales are DATA arguments (Pallas kernels cannot
-    capture array constants; they must enter as VMEM inputs):
-    ``potential_t(q_t, y_col, sig2_col)``.
-    """
-    y = jnp.asarray([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
-    sigma = jnp.asarray([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
-    data = (y[:, None], (sigma**2)[:, None])
-
-    def potential_t(q_t, y_col, sig2_col):
-        mu = q_t[0:1, :]
-        log_tau = q_t[1:2, :]
-        theta_raw = q_t[2:, :]
-        tau = jnp.exp(log_tau)
-        neg_lp = 0.5 * (mu / 5.0) ** 2
-        neg_lp = neg_lp + 0.5 * (log_tau / 5.0) ** 2 - log_tau
-        neg_lp = neg_lp + jnp.sum(
-            0.5 * theta_raw * theta_raw, axis=0, keepdims=True
-        )
-        theta = mu + tau * theta_raw
-        neg_lp = neg_lp + jnp.sum(
-            0.5 * (y_col - theta) ** 2 / sig2_col, axis=0, keepdims=True
-        )
-        return neg_lp[0]
-
-    return potential_t, data, jnp.zeros(10)
-
-
-def neals_funnel_pg_t(dim: int = 10):
-    """Neal's funnel as a FUSED potential+gradient builder for the
-    transposed megakernel's pre-differentiated path
-    (``potential_and_grad_t=``): the hand-written gradient skips the
-    in-kernel ``jax.vjp`` residual bookkeeping (PERF.md round 3).
-
-    U = (v/3)²/2 + Σ x²e⁻ᵛ/2 + (d−1)v/2;  ∂U/∂v = v/9 − Σx²e⁻ᵛ/2 +
-    (d−1)/2,  ∂U/∂x = x·e⁻ᵛ.
-
-    Returns ``(potential_t, potential_and_grad_t, data,
-    example_position)`` with a (1, 1) dummy data row (Pallas kernels
-    take data as VMEM inputs; the funnel has none).
-    """
-
-    def potential_t(q_t, _dummy):
-        v = q_t[0:1, :]
-        x = q_t[1:, :]
-        return (
-            0.5 * (v / 3.0) ** 2
-            + jnp.sum(0.5 * x * x * jnp.exp(-v), axis=0, keepdims=True)
-            + (dim - 1) * 0.5 * v
-        )[0]
-
-    def potential_and_grad_t(q_t, _dummy):
-        v = q_t[0:1, :]
-        x = q_t[1:, :]
-        e = jnp.exp(-v)
-        sumsq = jnp.sum(x * x, axis=0, keepdims=True)
-        u = 0.5 * (v / 3.0) ** 2 + 0.5 * sumsq * e + (dim - 1) * 0.5 * v
-        gv = v / 9.0 - 0.5 * sumsq * e + (dim - 1) * 0.5
-        gx = x * e
-        return u, jnp.concatenate([gv, gx], axis=0)
-
-    data = (jnp.zeros((1, 1), jnp.float32),)
-    return potential_t, potential_and_grad_t, data, jnp.zeros(dim)
-
-
-def eight_schools_pg_t():
-    """Non-centered eight schools as a FUSED potential+gradient builder
-    (pre-differentiated path of the transposed megakernel); same density
-    and data layout as :func:`eight_schools_t`.
-
-    With θ = μ + τ·θ_raw, τ = e^{log τ}, r = (θ − y)/σ²:
-    ∂U/∂μ = μ/25 + Σr;  ∂U/∂logτ = logτ/25 − 1 + τ·Σ(r·θ_raw);
-    ∂U/∂θ_raw = θ_raw + τ·r.
-    """
-    potential_t, data, example = eight_schools_t()
-
-    def potential_and_grad_t(q_t, y_col, sig2_col):
-        mu = q_t[0:1, :]
-        log_tau = q_t[1:2, :]
-        theta_raw = q_t[2:, :]
-        tau = jnp.exp(log_tau)
-        theta = mu + tau * theta_raw
-        resid = (theta - y_col) / sig2_col
-        u = (
-            0.5 * (mu / 5.0) ** 2
-            + 0.5 * (log_tau / 5.0) ** 2
-            - log_tau
-            + jnp.sum(0.5 * theta_raw * theta_raw, axis=0, keepdims=True)
-            + jnp.sum(
-                0.5 * (y_col - theta) ** 2 / sig2_col, axis=0,
-                keepdims=True,
-            )
-        )
-        g_mu = mu / 25.0 + jnp.sum(resid, axis=0, keepdims=True)
-        g_lt = (
-            log_tau / 25.0
-            - 1.0
-            + tau * jnp.sum(resid * theta_raw, axis=0, keepdims=True)
-        )
-        g_tr = theta_raw + tau * resid
-        return u, jnp.concatenate([g_mu, g_lt, g_tr], axis=0)
-
-    return potential_t, potential_and_grad_t, data, example
-
-
-__all__ = ["neals_funnel", "eight_schools", "neals_funnel_t",
-           "eight_schools_t", "neals_funnel_pg_t", "eight_schools_pg_t"]
+__all__ = ["neals_funnel", "eight_schools"]

@@ -1,8 +1,8 @@
 """Regression posteriors (BASELINE.md configs 2 and 5).
 
 The data term of both models is a matvec over the dataset; batched over
-thousands of chains it becomes a single large matmul that XLA tiles onto the
-MXU — this is where the TPU's FLOPs live for the throughput benchmark.
+thousands of chains it becomes one large matrix product, which is where the
+throughput benchmark spends its FLOPs.
 """
 
 from typing import Callable, Tuple
@@ -51,7 +51,7 @@ def logistic_regression_data(
     dim: int = 100, num_points: int = 1_000, seed: int = 42
 ) -> Tuple[jax.Array, jax.Array]:
     """The synthetic (X, y) dataset behind :func:`logistic_regression` —
-    exposed so benchmarks and fused kernels operate on the same posterior."""
+    exposed so benchmarks and references operate on the same posterior."""
     rng = np.random.default_rng(seed)
     X = rng.normal(0.0, 1.0, size=(num_points, dim)) / np.sqrt(dim)
     true_w = rng.normal(0.0, 1.0, size=dim)
@@ -69,7 +69,7 @@ def logistic_regression(
 
     BASELINE.md config 5: 10k chains on a 100-d posterior.  The per-chain
     gradient is ``X^T (y - sigmoid(X w))``; vmapped over chains this is two
-    ``(chains, points) x (points, dim)`` matmuls on the MXU.
+    ``(chains, points) x (points, dim)`` matrix products.
     """
     X, y = logistic_regression_data(dim, num_points, seed)
 
@@ -84,81 +84,3 @@ def logistic_regression(
 
     example_position = jnp.zeros(dim, dtype=jnp.float32)
     return logprob_fn, example_position
-
-
-def logistic_regression_t(
-    dim: int = 100, num_points: int = 1_000, seed: int = 42
-):
-    """The :func:`logistic_regression` posterior as a TRANSPOSED batched
-    potential for the chains-in-lanes megakernel
-    (:mod:`aehmc_tpu.ops.nuts_fused_small`): ``potential_t(q_t, X, y_col)``
-    with ``q_t`` of shape (dim, block).
-
-    Returns ``(potential_t, data, example_position)`` — the dataset is a
-    DATA argument (Pallas kernels cannot capture array constants).
-    """
-    X, y = logistic_regression_data(dim, num_points, seed)
-    y_col = y.reshape(-1, 1)
-
-    def potential_t(q_t, Xv, y_c):
-        logits = Xv @ q_t  # (points, block) MXU matmul
-        sp = jnp.maximum(logits, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(logits)))
-        loglik = jnp.sum(y_c * logits - sp, axis=0)
-        return -loglik + 0.5 * jnp.sum(q_t * q_t, axis=0)
-
-    return potential_t, (X, y_col), jnp.zeros(dim)
-
-
-def logistic_regression_pg_t(
-    dim: int = 100,
-    num_points: int = 1_000,
-    seed: int = 42,
-    matmul_dtype=jnp.bfloat16,
-):
-    """:func:`logistic_regression` as a FUSED potential+gradient builder
-    for the chains-in-lanes megakernel's mixed-precision path
-    (``sample_fused_small(potential_and_grad_t=...)``).
-
-    The two data matmuls per gradient evaluation — ``logits = X q_t`` and
-    ``grad = Xᵀ (σ(logits) − y)`` — run with ``matmul_dtype`` operands and
-    f32 MXU accumulation; everything downstream of the matmuls (softplus,
-    energies, the Metropolis correction) stays f32, so the sampler is
-    exact for the (deterministically rounded) potential ũ — the same
-    dtype policy as the standard-layout kernel's default bf16 passes
-    (:mod:`aehmc_tpu.config` dtype policy; ops/nuts_fused.py matmul_dtype).
-
-    Returns ``(potential_t, potential_and_grad_t, data, example_position)``
-    with ``data = (X_cast, Xᵀ_cast, y_col)`` — the transpose is passed as
-    its own operand so the kernel never relayouts the (points, dim) block.
-    """
-    X, y = logistic_regression_data(dim, num_points, seed)
-    Xc = X.astype(matmul_dtype)
-    XTc = X.T.astype(matmul_dtype)
-    y_col = y.reshape(-1, 1)
-
-    def _logits(q_t, Xv):
-        return jax.lax.dot_general(
-            Xv, q_t.astype(matmul_dtype), (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-
-    def potential_t(q_t, Xv, XTv, y_c):
-        logits = _logits(q_t, Xv)
-        sp = jnp.maximum(logits, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(logits)))
-        loglik = jnp.sum(y_c * logits - sp, axis=0)
-        return -loglik + 0.5 * jnp.sum(q_t * q_t, axis=0)
-
-    def potential_and_grad_t(q_t, Xv, XTv, y_c):
-        logits = _logits(q_t, Xv)  # (points, block), f32 accumulate
-        sp = jnp.maximum(logits, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(logits)))
-        u = -jnp.sum(y_c * logits - sp, axis=0, keepdims=True) + 0.5 * jnp.sum(
-            q_t * q_t, axis=0, keepdims=True
-        )
-        resid = jax.nn.sigmoid(logits) - y_c  # f32 (points, block)
-        grad = jax.lax.dot_general(
-            XTv, resid.astype(matmul_dtype), (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ) + q_t
-        return u, grad
-
-    return potential_t, potential_and_grad_t, (Xc, XTc, y_col), jnp.zeros(dim)

@@ -150,8 +150,7 @@ def new_externalized_kernel(
     paired_leaves: bool = True,
 ) -> Callable:
     """NUTS transition with ALL randomness passed in — a pure deterministic
-    function for differential testing against :mod:`aehmc_tpu.ops.nuts_oracle`
-    and for validating fused kernels.
+    function for differential testing against :mod:`aehmc_tpu.ops.nuts_oracle`.
 
     Returns ``step(state, momentum, directions, u_bias, u_leaf, step_size,
     inverse_mass_matrix) -> (ChainState, Diagnostics)`` where

@@ -1,6 +1,6 @@
 """Tracing, progress logging, and runtime guards.
 
-TPU-native equivalents for the observability the reference delegates to its
+Equivalents for the observability the reference delegates to its
 host framework (SURVEY.md §5):
 
 - per-transition :class:`~aehmc_tpu.types.Diagnostics` are already first-class
@@ -8,7 +8,7 @@ host framework (SURVEY.md §5):
 - :func:`progress_callback` streams step / acceptance / divergence counts
   from *inside* a jitted scan via ``jax.debug.callback``;
 - :func:`annotate` wraps a phase in a ``jax.profiler`` trace annotation so
-  warmup/sampling show up as named spans in a TPU profile;
+  warmup/sampling show up as named spans in a device profile;
 - :func:`guard_finite` is the race-detector stand-in (SURVEY.md §5): a
   checkify-style assertion that chain positions stay finite, for tests and
   debugging runs.
@@ -61,7 +61,7 @@ def progress_callback(
 
 @contextmanager
 def annotate(name: str):
-    """Named profiler span (shows up in `jax.profiler` TPU traces)."""
+    """Named profiler span (shows up in `jax.profiler` device traces)."""
     with jax.profiler.TraceAnnotation(name):
         yield
 

@@ -1,45 +1,11 @@
-"""Custom TPU kernels (Pallas/Mosaic) for the hot paths.
+"""Reference implementations that check the samplers.
 
-The compute path of the framework is XLA; this package holds hand-fused
-kernels where XLA's automatic fusion leaves performance on the table.
-Four kernel families: the chain-batched multi-step leapfrog
-(:mod:`aehmc_tpu.ops.leapfrog`), fused HMC trajectories with in-kernel MXU
-gradients (:mod:`aehmc_tpu.ops.fused_hmc`), the fused whole-transition
-NUTS megakernel (:mod:`aehmc_tpu.ops.nuts_fused` — generic in-kernel AD
-gradients, in-kernel PRNG, whole-sampling-run variant), and its
-chains-in-lanes twin for small-dimension posteriors
-(:mod:`aehmc_tpu.ops.nuts_fused_small`).  All NUTS kernels are validated
-exactly against the NumPy oracles in :mod:`aehmc_tpu.ops.nuts_oracle`;
-every kernel ships with a reference implementation used as the
-correctness oracle and as the fallback on non-TPU backends.
+:mod:`aehmc_tpu.ops.nuts_oracle` is a NumPy NUTS transition with every
+random input externalized: fed the same momentum, directions and uniforms,
+it reproduces a transition decision for decision, in float64.
 """
 
-from aehmc_tpu.ops.fused_hmc import (  # noqa: F401
-    fused_logistic_hmc_reference,
-    fused_logistic_hmc_tpu,
-)
-from aehmc_tpu.ops.nuts_fused import (  # noqa: F401
-    fused_nuts_transition,
-    make_fused_nuts_transition,
-    sample_fused,
-    sample_fused_logistic,
-)
-from aehmc_tpu.ops.fused_driver import (  # noqa: F401
-    sample_fused_adaptive,
-    shard_fused_transition,
-    warmup_fused,
-    warmup_fused_hooks,
-)
-from aehmc_tpu.ops.nuts_fused_small import (  # noqa: F401
-    make_fused_nuts_transition_small,
-    sample_fused_small,
-)
 from aehmc_tpu.ops.nuts_oracle import (  # noqa: F401
     nuts_transition_oracle,
     nuts_transition_oracle_generic,
-)
-from aehmc_tpu.ops.leapfrog import (  # noqa: F401
-    batched_leapfrog_reference,
-    batched_leapfrog_tpu,
-    fused_leapfrog_available,
 )

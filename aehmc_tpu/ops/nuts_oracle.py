@@ -1,7 +1,7 @@
 """Pure-NumPy single-chain iterative NUTS with *externalized randomness*.
 
-The differential-testing oracle for the fused NUTS kernel
-(:mod:`aehmc_tpu.ops.nuts_fused`): all random inputs — the momentum, the
+The differential-testing oracle for NUTS transition implementations: all
+random inputs — the momentum, the
 per-doubling directions and biased-sampling uniforms, the per-leaf
 progressive-sampling uniforms — are passed in, so the transition is a pure
 deterministic function and two implementations can be compared exactly.
@@ -89,8 +89,7 @@ def nuts_transition_oracle_generic(
     """One NUTS transition for an ARBITRARY potential, single chain.
 
     ``potential(q) -> float`` and ``grad(q) -> ndarray`` take float64
-    positions.  The differential oracle for the generic fused megakernel
-    (:func:`aehmc_tpu.ops.nuts_fused.make_fused_nuts_transition`).
+    positions.
     """
     q0 = np.asarray(q0, np.float64)
     p0 = np.asarray(p0, np.float64)
@@ -163,8 +162,8 @@ def nuts_transition_oracle_generic(
                 sub_prop = leaf
             else:
                 u = float(u_leaf[2**d - 1 + i])
-                # logit-space progressive-uniform compare, matching the
-                # fused kernel: u < sigmoid(x) <=> logit(u) < x; a NaN
+                # logit-space progressive-uniform compare:
+                # u < sigmoid(x) <=> logit(u) < x; a NaN
                 # weight delta compares False = reject
                 with np.errstate(divide="ignore"):
                     u_logit = np.log(u) - np.log1p(-u)

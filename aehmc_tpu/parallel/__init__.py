@@ -1,10 +1,10 @@
-"""Multi-device execution over a TPU mesh.
+"""Multi-device execution over a device mesh.
 
 The reference is strictly single-process, single-chain (SURVEY.md §2); this
-package is the new TPU-native scaling layer: chains shard over a
-``jax.sharding.Mesh`` axis, per-chain sampling needs zero communication, and
-the only collectives are the cross-chain reductions of pooled adaptation and
-convergence diagnostics — which XLA issues over ICI automatically when the
+package is the scaling layer: chains shard over a ``jax.sharding.Mesh``
+axis, per-chain sampling needs zero communication, and the only collectives
+are the cross-chain reductions of pooled adaptation and convergence
+diagnostics — which XLA issues across devices automatically when the
 reduced axis is sharded.
 """
 

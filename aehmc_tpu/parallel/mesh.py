@@ -17,9 +17,9 @@ def make_mesh(
 ) -> Mesh:
     """Create a 1-D mesh over the chain axis.
 
-    Chains are embarrassingly parallel, so a flat mesh over all chips (ICI
-    ring on a slice) is the right layout; pooled-adaptation all-reduces ride
-    ICI.  For multi-slice (DCN) scale-out pass an explicit device list.
+    Chains are embarrassingly parallel, so a flat mesh over all devices is
+    the right layout; the pooled-adaptation all-reduces are the only
+    cross-device traffic.
     """
     if devices is None:
         devices = jax.devices()
@@ -36,14 +36,14 @@ def make_multislice_mesh(
     devices: Optional[Sequence[jax.Device]] = None,
     axis_names: Sequence[str] = (SLICE_AXIS, CHAIN_AXIS),
 ) -> Mesh:
-    """2-D ``(slice, chains)`` mesh for multi-slice (DCN) scale-out.
+    """2-D ``(hosts, cards)`` device grid, ``num_slices`` rows.
 
-    The outer axis models TPU slices connected over DCN, the inner axis
-    the chips of one slice (ICI).  Chains shard over BOTH axes (see
-    :func:`chain_sharding`); pooled-adaptation reductions become
-    hierarchical collectives — XLA reduces within each slice over ICI
-    first, then across slices over DCN.  On a real deployment pass the
-    actual device list ordered slice-major.
+    The outer axis groups the devices of one host, the inner axis the
+    cards within it; pass the device list ordered host-major.  Chains
+    shard over BOTH axes (see :func:`chain_sharding`), so the pooled
+    reductions become two-level collectives — within a host, then across
+    hosts.  It is a plain grid, not a torus: every card of a host reaches
+    every other at the same rate.
     """
     if devices is None:
         devices = jax.devices()

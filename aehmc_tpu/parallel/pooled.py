@@ -10,7 +10,7 @@ far fewer steps than the reference's 1000 — a genuine algorithmic win from
 multi-chain hardware, not just a port.
 
 All reductions are ``jnp.mean``/matmuls over the chain axis: when that axis
-is sharded over a mesh, XLA lowers them to ``psum`` over ICI automatically.
+is sharded over a mesh, XLA lowers them to an all-reduce across devices.
 """
 
 from typing import Callable, Optional, Tuple
@@ -241,9 +241,6 @@ def sample_sharded(
     mesh=None,
     collect_positions: bool = True,
     meads_recompute_every: int = 1,
-    meads_transition_fn: Callable = None,
-    meads_segment_fn: Callable = None,
-    chees_kernel_fn: Callable = None,
     checkpoint_every: int = 0,
     checkpoint_path: Optional[str] = None,
     resume: bool = False,
@@ -254,30 +251,17 @@ def sample_sharded(
 
     ``initial_positions``: (chains, dim) — the chain axis is sharded over the
     mesh's ``chains`` axis; per-chain transitions need no communication, and
-    the pooled-adaptation reductions become ICI collectives.
+    the pooled-adaptation reductions become collectives across devices.
 
     Beyond "nuts"/"hmc"/"mala"/"ghmc", ``algorithm`` may be:
 
     - ``"chees"``: ChEES-HMC warmup + sampling (shared jittered trajectory
-      lengths; see :mod:`aehmc_tpu.chees`).  ``chees_kernel_fn`` swaps in
-      a custom transition — pass
-      :func:`aehmc_tpu.ops.chees_fused.make_fused_chees_kernel` (built
-      with ``mesh=`` matching this call's mesh) to run the FUSED ChEES
-      megakernel under the same pooled adaptation, mesh placement, and
-      checkpoint/resume machinery (``logprob_fn`` still initializes the
-      chain states);
+      lengths; see :mod:`aehmc_tpu.chees`);
     - ``"meads"``: tuning-free adaptive GHMC with cross-fold hyperparameter
       estimation (see :mod:`aehmc_tpu.meads`); ``num_warmup`` is burn-in
       only — adaptation is part of the kernel and continues while sampling.
       ``meads_recompute_every=k`` amortizes the eigenvalue estimation over
-      k-draw segments (~3x throughput at 10k chains, see PERF.md);
-      ``meads_transition_fn`` swaps in a custom fold transition — pass
-      :func:`aehmc_tpu.ops.ghmc_fused.make_fused_meads_transition` to
-      run each GHMC sweep as one VMEM-resident Pallas megakernel under
-      the same complementary-fold estimation; ``meads_segment_fn``
-      (:func:`aehmc_tpu.ops.ghmc_fused.make_fused_meads_segment`) goes
-      further and runs each whole ``meads_recompute_every``-draw segment
-      as ONE kernel dispatch (not composable with checkpointing yet).
+      k-draw segments.
 
     ``per_chain_step_size=True`` (nuts/hmc/mala/ghmc) adapts one dual
     averaging state per chain — each chain's eps tunes against its own
@@ -311,13 +295,6 @@ def sample_sharded(
     if algorithm == "meads":
         from aehmc_tpu import meads
 
-        if meads_segment_fn is not None and checkpoint_every:
-            raise ValueError(
-                "meads_segment_fn does not compose with checkpointing "
-                "yet — the checkpointed MEADS carrier steps the per-draw "
-                "kernel"
-            )
-
         if mesh is None and len(jax.devices()) > 1:
             mesh = make_mesh()
         if mesh is not None:
@@ -337,8 +314,6 @@ def sample_sharded(
                     divergence_threshold=divergence_threshold,
                     collect_positions=collect_positions,
                     recompute_every=meads_recompute_every,
-                    transition_fn=meads_transition_fn,
-                    segment_transition_fn=meads_segment_fn,
                 )
                 return SampleResult(
                     final_state=final_states,
@@ -358,7 +333,6 @@ def sample_sharded(
             logprob_fn,
             divergence_threshold=divergence_threshold,
             recompute_every=meads_recompute_every,
-            transition_fn=meads_transition_fn,
         )
 
         def meads_burn_step(carry, k):
@@ -494,7 +468,6 @@ def sample_sharded(
                 initial_step_size=initial_step_size,
                 divergence_threshold=divergence_threshold,
                 search_initial_step_size=search_initial_step_size,
-                kernel_fn=chees_kernel_fn,
             )
             extras = (
                 result.step_size,
@@ -515,7 +488,6 @@ def sample_sharded(
                 imm,
                 divergence_threshold=divergence_threshold,
                 collect_positions=collect_positions,
-                kernel_fn=chees_kernel_fn,
                 _keys=keys,
                 _step_offset=seg_start,
             )
@@ -555,7 +527,6 @@ def sample_sharded(
             divergence_threshold=divergence_threshold,
             search_initial_step_size=search_initial_step_size,
             dtype=initial_positions.dtype,
-            kernel_fn=chees_kernel_fn,
         )
 
         def chees_wh_init(key, positions):

@@ -61,7 +61,7 @@ def progressive_uniform_sampling_from_u(
     u: jax.Array, proposal: ProposalState, new_proposal: ProposalState
 ) -> ProposalState:
     """:func:`progressive_uniform_sampling` with the uniform draw passed in
-    (externalized randomness for differential testing / fused kernels)."""
+    (externalized randomness for differential testing)."""
     p_accept = jax.scipy.special.expit(new_proposal.weight - proposal.weight)
     p_accept = jnp.where(jnp.isnan(p_accept), 0.0, p_accept)
     do_accept = u < p_accept

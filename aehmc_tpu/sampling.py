@@ -2,7 +2,7 @@
 
 The reference leaves the outer loop to user code — an Aesara ``scan`` over the
 kernel plus ``aesara.function`` compilation (ref tests/test_hmc.py:314-327,
-examples/LinearRegression.ipynb).  On TPU that loop must live inside the same
+examples/LinearRegression.ipynb).  On an accelerator that loop must live inside the same
 compiled program, so it is a first-class API here (SURVEY.md §3.4, §7):
 
 - :func:`sample_loop` — jitted ``lax.scan`` over any kernel, one chain.

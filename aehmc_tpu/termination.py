@@ -1,6 +1,6 @@
 """Iterative U-turn termination criterion (NumPyro/TFP checkpoint scheme).
 
-Rewrite of ref termination.py:19-235 with two TPU-first changes:
+Rewrite of ref termination.py:19-235 with two batching-first changes:
 
 1. The reference finds checkpoint indices with two inner Aesara scans
    (ref termination.py:207-231).  Here they are closed-form bit operations on
@@ -83,7 +83,7 @@ def iterative_uturn(
         The write is a broadcast *select* on a one-hot row mask rather than a
         ``.at[idx].set`` scatter: under ``vmap`` over thousands of chains a
         per-lane dynamic-index scatter lowers to an XLA scatter over the whole
-        (chains, K, dim) buffer — orders of magnitude slower on TPU than the
+        (chains, K, dim) buffer — far slower on an accelerator than the
         equivalent masked select, which stays a fused elementwise op.
 
         ``parity`` is a static hint when the caller knows the step's parity

@@ -72,7 +72,7 @@ def _default_leaf_uniform(key: jax.Array, leaf_index: jax.Array) -> jax.Array:
 
     ``leaf_index`` is the global leaf index ``2**d - 1 + i`` for leaf ``i``
     of doubling ``d`` — the static stream position an externalized override
-    (e.g. an oracle-comparison test or a fused kernel) reads instead.
+    (e.g. an oracle-comparison test) reads instead.
     """
     del leaf_index
     return jax.random.uniform(key)
@@ -408,7 +408,7 @@ def multiplicative_expansion(
 
     ``direction_fn(key, doubling)`` / ``bias_uniform_fn(key, doubling)``
     default to fresh PRNG draws; overriding them externalizes the
-    randomness (oracle differential tests, fused kernels).
+    randomness (oracle differential tests).
     """
 
     def expand(

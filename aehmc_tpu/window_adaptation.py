@@ -125,7 +125,7 @@ def window_adaptation(
         state = da_init(jnp.log(10.0) + log_step_size)
         # gradient_avg must match the step-size shape (a PER-CHAIN vector
         # when the caller adapts each chain's eps against its own
-        # acceptance — aehmc_tpu.ops.fused_driver per_chain_step_size);
+        # acceptance — pooled per_chain_step_size);
         # da_init pins it to a scalar, which would change the scan-carry
         # shape on the first vector update.  zeros_like is a no-op for
         # the scalar path.

@@ -1,35 +1,29 @@
-"""Headline benchmark: the FLAGSHIP production path.
+"""Headline benchmark: the flagship on the front door's default route.
 
-Runs the flagship fused pg-NUTS config — 10,240 chains x 100-d logistic
-regression through the transposed (chains-in-lanes) Pallas megakernel
-with the pre-differentiated potential+grad and bf16 draw storage —
-under the one-accounting end-to-end protocol of
-``benchmarks/run.py::flagship_end_to_end``: 150 self-tuning warmup
-steps (``warmup_fused``, median-of-3) plus 200 sampling draws
-(``sample_fused_small``, median-of-5), compile excluded.
+``aehmc_tpu.sample`` NUTS through ``auto`` -> ``pooled`` (XLA kernels,
+pooled Stan window adaptation) on 10,240 chains x the 100-d, 1,000-row
+logistic regression, under the flagship protocol: 150 warmup steps plus
+200 draws.  Compile is timed apart (the cold call); walls are medians of
+warm calls, and since one program runs warmup and sampling, the sampling
+wall is the difference to a run with twice the draws.  The headline
+value is sampling-phase leapfrog gradient-evals/s; the record also
+carries sampling and end-to-end ESS/s (= sampling ESS / total wall).
+``vs_baseline`` divides by the reference's only recorded anchor —
+15.9k grad-evals/s on one CPU core (BASELINE.md row 1, ref
+examples/LinearRegression.ipynb cell 27).  That anchor config runs
+afterwards as a secondary stderr record.
 
-The headline value is sampling-phase leapfrog gradient-evals/sec/chip
-on the production kernel; the record also carries sampling ESS/s and
-end-to-end ESS/s (= sampling ESS / total wall).  ``vs_baseline``
-divides by the reference's only recorded anchor — 15.9k grad-evals/s
-on one CPU core (BASELINE.md row 1, ref
-examples/LinearRegression.ipynb cell 27).
-
-That HMC-linreg anchor config (rounds 1-3's headline; the config the
-reference actually recorded) still runs afterwards as a SECONDARY
-stderr record so the anchor comparison stays reproducible.
-
-If the fused path fails (e.g. no TPU attached), the benchmark falls
-back to the XLA HMC anchor config and says so in the JSON.
-
-Prints exactly ONE JSON line on stdout; all narration goes to stderr.
+Every record names the device (``device_kind``, device count, and the
+card's name and power limit from ``nvidia-smi``).  Without a GPU the
+benchmark exits non-zero; a failed run is an error, never another
+metric.  Prints exactly ONE JSON line on stdout; narration goes to
+stderr.
 """
 
 import json
 import subprocess
 import sys
 import time
-import traceback
 
 import jax
 import jax.numpy as jnp
@@ -65,89 +59,72 @@ def _timed(fn, runs):
     return float(np.median(times)), out
 
 
-def bench_flagship_fused(num_chains=10_240, dim=100, W=150, D=200):
-    """The production path: fused self-tuning warmup + fused sampling."""
-    from aehmc_tpu.models import logistic_regression, logistic_regression_pg_t
-    from aehmc_tpu.ops.fused_driver import warmup_fused
-    from aehmc_tpu.ops.nuts_fused_small import (
-        _as_data_row,
-        make_fused_nuts_transition_small,
-        sample_fused_small,
-    )
+def bench_flagship(num_chains=10_240, dim=100, W=150, D=200):
+    """The front door's default route at the flagship width."""
+    import aehmc_tpu
+    from aehmc_tpu.models import logistic_regression
     from benchmarks.run import _ess_per_sec
 
-    _, q0 = logistic_regression(dim=dim, num_points=1000)
+    logprob_fn, q0 = logistic_regression(dim=dim, num_points=1000)
     keys = jax.random.split(jax.random.PRNGKey(0), num_chains)
     qs = jnp.tile(q0, (num_chains, 1)) + 0.1 * jax.vmap(
         lambda k: jax.random.normal(k, (dim,), jnp.float32)
     )(keys)
 
-    potential_t, pg, data_t, _ = logistic_regression_pg_t(
-        dim=dim, num_points=1000, matmul_dtype=jnp.float32
-    )
-    transition = make_fused_nuts_transition_small(
-        potential_t, list(data_t),
-        max_num_expansions=6, block_chains=512,
-        potential_and_grad_t=pg,
-    )
-    rows = [_as_data_row(d) for d in data_t]
-    u0, g0_t = pg(qs.T.astype(jnp.float32), *rows)
-    u0 = u0.reshape(num_chains, 1)
-    g0 = g0_t.T
+    def run(key, q, draws):
+        return aehmc_tpu.sample(key, logprob_fn, q, draws, W,
+                                max_num_expansions=6)
 
-    warm_fn = jax.jit(
-        lambda k: warmup_fused(
-            k, transition, qs.astype(jnp.float32), u0, g0, W,
-            max_num_expansions=6, initial_step_size=0.1,
-        )
+    # the front door traces and compiles its program on every call; under
+    # one outer jit the warm calls time the run alone (the start is an
+    # argument, not a constant XLA would fold into the program)
+    jitted = jax.jit(run, static_argnums=2)
+    t0 = time.perf_counter()
+    jax.block_until_ready(jitted(jax.random.PRNGKey(10), qs, D))
+    t_cold = time.perf_counter() - t0
+    t_total, res = _timed(
+        lambda r: jitted(jax.random.PRNGKey(10 + r), qs, D), 3
     )
-    t_warm, ((qw, _, _), eps, imm) = _timed(
-        lambda r: warm_fn(jax.random.PRNGKey(10 + r)), 3
+    t_double, _ = _timed(
+        lambda r: jitted(jax.random.PRNGKey(10 + r), qs, 2 * D), 3
     )
-    log(f"fused warmup: {W} steps in {t_warm:.3f}s (median of 3), "
-        f"tuned eps {float(jnp.mean(eps)):.4f}")
-
-    samp_fn = jax.jit(
-        lambda k: sample_fused_small(
-            k, potential_t, list(data_t), qw, D, eps, imm,
-            max_num_expansions=6, block_chains=512,
-            potential_and_grad_t=pg, collect_dtype=jnp.bfloat16,
-            loop_in_kernel=True,
-        )
-    )
-    t_samp, (_, pos, stats) = _timed(
-        lambda r: samp_fn(jax.random.PRNGKey(20 + r)), 5
-    )
-    stats = np.asarray(stats)
-    evals = int(stats[:, :, 3].sum())
-    accept = float(stats[:, :, 1].mean())
-    div = int(stats[:, :, 4].sum())
+    t_samp = t_double - t_total
+    t_warm = t_total - t_samp
+    t0 = time.perf_counter()
+    jax.block_until_ready(run(jax.random.PRNGKey(10), qs, D))
+    t_call = time.perf_counter() - t0
+    evals = int(np.sum(np.asarray(res.diagnostics.num_integration_steps)))
+    accept = float(np.mean(np.asarray(res.diagnostics.acceptance_probability)))
+    div = int(np.sum(np.asarray(res.diagnostics.is_diverging)))
     evals_per_sec = evals / t_samp
-    ess_sec, min_ess, capped = _ess_per_sec(np.asarray(pos, np.float32), t_samp)
-    e2e_ess_sec = ess_sec * t_samp / (t_warm + t_samp)
+    ess_sec, min_ess, capped = _ess_per_sec(
+        np.asarray(res.positions, np.float32), t_samp
+    )
+    e2e_ess_sec = ess_sec * t_samp / t_total
     log(
-        f"flagship fused pg-NUTS (bf16 store): {num_chains} chains x "
-        f"{dim}-d logistic, warmup {t_warm:.2f}s + sampling {t_samp:.2f}s; "
-        f"{evals_per_sec / 1e6:.1f}M evals/s, {ess_sec / 1e6:.0f}M ESS/s "
-        f"sampling, {e2e_ess_sec / 1e6:.0f}M ESS/s end-to-end; accept "
-        f"{accept:.3f}, div {div}, min ESS {min_ess:.0f}"
+        f"flagship pooled NUTS: {num_chains} chains x {dim}-d logistic, "
+        f"compile {t_cold - t_total:.2f}s, warmup {t_warm:.3f}s + sampling "
+        f"{t_samp:.3f}s (a repeated front-door call {t_call:.3f}s); "
+        f"{evals_per_sec / 1e6:.1f}M evals/s, "
+        f"{e2e_ess_sec / 1e6:.2f}M ESS/s end-to-end; accept {accept:.3f}, "
+        f"div {div}, min ESS {min_ess:.0f}"
     )
     return {
-        "metric": "flagship_fused_nuts_sampling_grad_evals_per_sec_per_chip",
+        "metric": "flagship_nuts_sampling_grad_evals_per_sec",
         "value": round(evals_per_sec, 1),
         "unit": "evals/s",
         "vs_baseline": round(evals_per_sec / BASELINE_GRAD_EVALS_PER_SEC, 2),
-        "runs": 5,
+        "runs": 3,
         "stat": "median",
-        "config": "nuts_fused_pg_10k_bf16store + warmup_fused(150)",
-        "block_chains": 512,
-        "loop_in_kernel": True,
+        "config": "aehmc_tpu.sample nuts auto->pooled, max depth 6",
         "chains": num_chains,
         "dim": dim,
         "warmup_steps": W,
         "draws": D,
-        "warmup_wall_s": round(t_warm, 3),
-        "sampling_wall_s": round(t_samp, 3),
+        "compile_s": round(t_cold - t_total, 3),
+        "warmup_wall_s": round(t_warm, 4),
+        "sampling_wall_s": round(t_samp, 4),
+        "front_door_call_s": round(t_call, 4),
         "sampling_ess_per_sec": round(ess_sec),
         "end_to_end_ess_per_sec": round(e2e_ess_sec),
         "min_ess": round(min_ess),
@@ -161,7 +138,7 @@ def bench_hmc_linear_regression(num_chains=1024, num_draws=100, L=1024):
     """SECONDARY record: the reference's only recorded benchmark — the
     LinearRegression.ipynb HMC config (10k points, 2 params, 1,024
     leapfrog steps per draw; BASELINE.md row 1: 15.9k grad-evals/s on
-    one CPU core) — chain-batched on one TPU chip via the XLA path."""
+    one CPU core) — chain-batched on one GPU via the XLA path."""
     from aehmc_tpu import hmc
     from aehmc_tpu.models import linear_regression
     from aehmc_tpu.sampling import sample_loop
@@ -204,39 +181,25 @@ def bench_hmc_linear_regression(num_chains=1024, num_draws=100, L=1024):
 
 
 def main():
+    import chip_smoke
     from aehmc_tpu.utils import enable_compilation_cache
 
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        log(f"no GPU: JAX found {devices[0].platform!r} devices")
+        sys.exit(1)
     cache_dir = enable_compilation_cache()
-    log(f"backend: {jax.default_backend()}, devices: {jax.devices()}, "
+    card = chip_smoke.card_info().splitlines()[0]
+    log(f"devices: {len(devices)} x {devices[0].device_kind} ({card}), "
         f"compile cache: {cache_dir}")
+    result = bench_flagship()
+    bench_hmc_linear_regression()
+    result.update(
+        device_kind=devices[0].device_kind,
+        device_count=len(devices),
+        card=card,
+    )
     commit = _git_commit()
-    try:
-        result = bench_flagship_fused()
-    except Exception:
-        log("flagship fused path FAILED — falling back to the XLA HMC "
-            "anchor config:\n" + traceback.format_exc())
-        evals_per_sec = bench_hmc_linear_regression()
-        result = {
-            "metric": "leapfrog_grad_evals_per_sec_per_chip",
-            "value": round(evals_per_sec, 1),
-            "unit": "evals/s",
-            "vs_baseline": round(
-                evals_per_sec / BASELINE_GRAD_EVALS_PER_SEC, 2
-            ),
-            "runs": 5,
-            "stat": "median",
-            "config": "hmc_linreg_anchor (FALLBACK: fused path failed)",
-        }
-        if commit:
-            result["commit"] = commit
-        print(json.dumps(result), flush=True)
-        return
-
-    # secondary record: the reference anchor config (stderr only)
-    try:
-        bench_hmc_linear_regression()
-    except Exception:
-        log("anchor config failed:\n" + traceback.format_exc())
     if commit:
         result["commit"] = commit
     print(json.dumps(result), flush=True)

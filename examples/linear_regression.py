@@ -4,7 +4,7 @@ Mirrors the reference's ``examples/LinearRegression.ipynb`` (10k data points,
 normal prior on the weight, Gamma noise scale sampled in log space): build the
 log-density, map named parameters to a flat vector with RaveledParamsMap, run
 HMC and NUTS with full window adaptation, and report timings and posterior
-summaries — all on whatever backend JAX picks (TPU when available).
+summaries — all on whatever backend JAX picks (the GPU when available).
 
 Run: python examples/linear_regression.py
 """

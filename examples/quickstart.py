@@ -3,8 +3,7 @@
 ``aehmc_tpu.sample`` is the one entry point: give it a log-density and
 an initial position and it warms up (Stan window adaptation) and
 samples.  A 1-D position runs one chain; a (chains, dim) batch runs
-pooled cross-chain adaptation sharded over every attached device; the
-Pallas megakernel fast path is one keyword away.
+pooled cross-chain adaptation sharded over every attached device.
 
 Run:  python examples/quickstart.py
 """
@@ -39,12 +38,6 @@ q0 = jax.random.normal(key, (256, 4), jnp.float32)
 out = aehmc_tpu.sample(key, logprob_fn, q0, 500, 500)
 print("pooled fleet:", out.positions.shape)
 
-# same fleet through a different algorithm (ChEES-HMC — no tree, TPU-regular):
+# same fleet through a different algorithm (ChEES-HMC — no tree, regular):
 out = aehmc_tpu.sample(key, logprob_fn, q0, 500, 500, algorithm="chees")
 print("chees fleet :", out.positions.shape)
-
-# the fused megakernel fast path (TPU; one keyword, no ops/ imports):
-if jax.default_backend() == "tpu":
-    out = aehmc_tpu.sample(key, logprob_fn, q0, 500, 500, path="fused")
-    print("fused fleet :", out.positions.shape,
-          "accept", float(jnp.mean(out.diagnostics.acceptance_probability)))

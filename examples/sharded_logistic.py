@@ -1,16 +1,14 @@
-"""Production-shaped example: 10k-chain Bayesian logistic regression on TPU.
+"""Production-shaped example: many-chain Bayesian logistic regression on a GPU.
 
 Covers the full round-trip a production user needs:
 
 1. pooled cross-chain warmup + NUTS sampling sharded over the device mesh
    (``sample_sharded``), with periodic checkpointing so a preempted run
    resumes bit-for-bit;
-2. posterior summary (arviz columns) and the arviz interop bridge;
-3. the fused whole-transition NUTS megakernel as the fast path for the
-   same posterior (in-kernel gradients + in-kernel PRNG).
+2. posterior summary (arviz columns) and the arviz interop bridge.
 
 Run:  python examples/sharded_logistic.py  (scales the chain count down
-automatically when no TPU is attached).
+automatically when no GPU is attached).
 """
 
 import sys
@@ -33,9 +31,9 @@ import aehmc_tpu  # noqa: E402
 
 def main():
     enable_compilation_cache()
-    on_tpu = jax.default_backend() == "tpu"
+    on_gpu = jax.default_backend() == "gpu"
     dim, num_points = 100, 1000
-    num_chains = 2048 if on_tpu else 64
+    num_chains = 2048 if on_gpu else 64
     num_draws, num_warmup = 300, 200
 
     X, y = logistic_regression_data(dim=dim, num_points=num_points)
@@ -79,42 +77,6 @@ def main():
     idata_dict = to_inference_data_dict(res.positions, res.diagnostics)
     print(f"arviz bridge: {len(idata_dict['posterior'])} posterior vars, "
           f"stats {sorted(idata_dict['sample_stats'])}")
-
-    # --- 3. fused megakernel fast path (TPU only) -----------------------
-    # chains-in-lanes layout (the fastest path at any dim, PERF.md);
-    # note the TRANSPOSED potential contract: q_t is (dim, block)
-    if on_tpu:
-        from aehmc_tpu.models import logistic_regression_pg_t
-
-        # pre-differentiated potential+grad (the production fast path:
-        # hand-written fused u+g, ~+30% over in-kernel vjp at this dim);
-        # path="fused" on the front door runs self-tuning warmup AND
-        # sampling through the megakernel — no ops/ imports
-        pot_t, pg, data_pg, _ = logistic_regression_pg_t(
-            dim=dim, num_points=num_points, matmul_dtype=jnp.float32
-        )
-
-        fused = jax.jit(
-            lambda k: aehmc_tpu.sample(
-                k, None, q0, num_draws, num_warmup,
-                path="fused", data=data_pg,
-                potential_fn_t=pot_t, potential_and_grad_t=pg,
-                max_num_expansions=6, block_chains=256,
-                collect_dtype=jnp.bfloat16,
-            )
-        )
-        jax.block_until_ready(fused(jax.random.PRNGKey(2)).positions)
-        t0 = time.time()
-        fres = fused(jax.random.PRNGKey(3))
-        jax.block_until_ready(fres.positions)
-        dt = time.time() - t0
-        evals = int(jnp.sum(fres.diagnostics.num_integration_steps))
-        print(
-            f"fused megakernel (chains-in-lanes, self-tuning, bf16 draw "
-            f"store): {evals / dt / 1e6:.1f}M grad-evals/s whole-run, "
-            f"accept "
-            f"{float(jnp.mean(fres.diagnostics.acceptance_probability)):.3f}"
-        )
 
 
 if __name__ == "__main__":

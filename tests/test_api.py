@@ -1,10 +1,10 @@
 """The front door: aehmc_tpu.sample dispatches every algorithm across the
-XLA / pooled / fused paths and returns one SampleResult shape.
+XLA / pooled paths and returns one SampleResult shape.
 
 Statistical quality of each underlying driver is tested in its own
-module (test_sampling / test_parallel / test_fused_driver / test_chees /
-test_meads); here we pin the routing, the argument contracts, and that
-every route produces finite draws that move."""
+module (test_sampling / test_parallel / test_chees / test_meads /
+test_xla_routes); here we pin the routing, the argument contracts, and
+that every route produces finite draws that move."""
 
 import numpy as np
 import pytest
@@ -82,108 +82,6 @@ def test_unknown_algorithm_and_path():
         )
 
 
-def test_fused_path_rejects_unfused_algorithms():
-    # plain HMC is the one algorithm without a fused megakernel (its
-    # adaptive-trajectory fused analog is chees; ghmc/mala/meads all
-    # route through the fused GHMC transition)
-    with pytest.raises(ValueError, match="fused"):
-        aehmc_tpu.sample(
-            jax.random.PRNGKey(0), logprob_fn, _chain_batch(),
-            algorithm="hmc", path="fused",
-        )
-
-
-def test_fused_ghmc_front_door():
-    """algorithm='ghmc' path='fused' routes through sample_fused_ghmc
-    (persistent momentum, interpret mode on CPU) and moves."""
-    q0 = _chain_batch()
-    out = aehmc_tpu.sample(
-        jax.random.PRNGKey(7), logprob_fn, q0,
-        num_samples=32, num_warmup=60,
-        algorithm="ghmc", path="fused",
-        ghmc_alpha=0.7,
-        block_chains=8,
-        use_internal_prng=False,
-        segment_draws=8,
-        interpret=True,
-    )
-    assert isinstance(out, SampleResult)
-    assert out.positions.shape == (32, 8, 4)
-    assert np.isfinite(np.asarray(out.positions)).all()
-    assert float(jnp.std(out.positions[:, :, 0])) > 0.0
-
-
-def test_fused_mala_rejects_ghmc_alpha():
-    with pytest.raises(TypeError, match="alpha"):
-        aehmc_tpu.sample(
-            jax.random.PRNGKey(0), logprob_fn, _chain_batch(),
-            algorithm="mala", path="fused", ghmc_alpha=0.5,
-        )
-
-
-def test_fused_nuts_generic_potential():
-    """path='fused' with ONLY a logprob_fn: the generic transposed
-    potential is derived and differentiated in-kernel (interpret mode
-    on CPU)."""
-    q0 = _chain_batch()
-    out = aehmc_tpu.sample(
-        jax.random.PRNGKey(3), logprob_fn, q0,
-        num_samples=30, num_warmup=50,
-        path="fused",
-        max_num_expansions=4,
-        block_chains=8,
-        use_internal_prng=False,
-        interpret=True,
-    )
-    assert isinstance(out, SampleResult)
-    assert out.positions.shape == (30, 8, 4)
-    assert np.isfinite(np.asarray(out.positions)).all()
-    # stats adapted into the standard Diagnostics pytree
-    assert out.diagnostics.acceptance_probability.shape == (30, 8)
-    assert out.diagnostics.num_integration_steps.dtype == jnp.int32
-    assert float(jnp.mean(out.diagnostics.acceptance_probability)) > 0.3
-    assert 0.01 < float(out.step_size) < 5.0
-
-
-def test_fused_auto_when_transposed_potential_given():
-    def potential_t(q_t, var_col):
-        return 0.5 * jnp.sum(q_t * q_t / var_col, axis=0)
-
-    q0 = _chain_batch()
-    out = aehmc_tpu.sample(
-        jax.random.PRNGKey(4), logprob_fn, q0,
-        num_samples=20, num_warmup=40,
-        data=[VAR.reshape(-1, 1)],
-        potential_fn_t=potential_t,
-        max_num_expansions=4,
-        block_chains=8,
-        use_internal_prng=False,
-        interpret=True,
-    )
-    assert out.positions.shape == (20, 8, 4)
-    assert np.isfinite(np.asarray(out.positions)).all()
-
-
-def test_fused_chees_routes_through_pooled_adaptation():
-    def potential_t(q_t, var_col):
-        return 0.5 * jnp.sum(q_t * q_t / var_col, axis=0)
-
-    q0 = _chain_batch(chains=16)
-    out = aehmc_tpu.sample(
-        jax.random.PRNGKey(5), logprob_fn, q0,
-        num_samples=30, num_warmup=60,
-        algorithm="chees", path="fused",
-        data=[VAR.reshape(-1, 1)],
-        potential_fn_t=potential_t,
-        block_chains=16,
-        use_internal_prng=False,
-        interpret=True,
-    )
-    assert isinstance(out, SampleResult)
-    assert out.positions.shape == (30, 16, 4)
-    assert np.isfinite(np.asarray(out.positions)).all()
-
-
 def test_xla_independent_chains_path():
     q0 = _chain_batch()
     out = aehmc_tpu.sample(
@@ -195,117 +93,12 @@ def test_xla_independent_chains_path():
     assert np.isfinite(np.asarray(out.positions)).all()
 
 
-def test_fused_meads_routes_through_segment_kernel():
-    """algorithm='meads', path='fused' (single host, no checkpointing)
-    builds the MULTI-DRAW fused GHMC segment kernel and runs it under
-    the unchanged complementary-fold estimation (interpret mode,
-    external randomness).  Measured 47.4M vs 33.7M evals/s for the
-    per-draw transition at the 10k-chain flagship — this is the
-    production MEADS route."""
-    dim, chains = 4, 16
-    var = np.linspace(0.5, 2.0, dim).astype(np.float32)
-
-    def logprob_fn(q):
-        return -0.5 * jnp.sum(q * q / jnp.asarray(var), axis=-1)
-
-    def potential_t(q_t, var_col):
-        return 0.5 * jnp.sum(q_t * q_t / var_col, axis=0)
-
-    q0 = jax.random.normal(
-        jax.random.PRNGKey(0), (chains, dim), jnp.float32
-    )
-    res = aehmc_tpu.sample(
-        jax.random.PRNGKey(1), logprob_fn, q0,
-        num_samples=10, num_warmup=10,
-        algorithm="meads", path="fused",
-        data=[var.reshape(-1, 1)], potential_fn_t=potential_t,
-        block_chains=4, interpret=True, use_internal_prng=False,
-    )
-    assert res.positions.shape == (10, chains, dim)
-    assert np.isfinite(np.asarray(res.positions)).all()
-    acc = np.asarray(res.diagnostics.acceptance_probability)
-    assert acc.shape == (10, chains) and (acc >= 0).all()
-
-
-def test_fused_meads_checkpointing_falls_back_to_per_draw(
-    monkeypatch, tmp_path
-):
-    """checkpoint_every= cannot compose with the segment kernel (no
-    mid-segment state leaves the chip), so the fused MEADS route must
-    fall back to the per-draw transition — pin that the segment builder
-    is NOT called on that path and the run still works."""
-    import aehmc_tpu.ops.ghmc_fused as gf
-
-    def boom(*a, **k):  # pragma: no cover - fails the test if reached
-        raise AssertionError(
-            "segment kernel built on a checkpointed run"
-        )
-
-    monkeypatch.setattr(gf, "make_fused_meads_segment", boom)
-
-    var = np.asarray([0.5, 2.0, 1.0, 4.0], np.float32)
-    chains, dim = 16, var.size
-
-    def logprob_fn(q):
-        return -0.5 * jnp.sum(q * q / jnp.asarray(var), axis=-1)
-
-    def potential_t(q_t, var_col):
-        return 0.5 * jnp.sum(q_t * q_t / var_col, axis=0)
-
-    q0 = jax.random.normal(
-        jax.random.PRNGKey(0), (chains, dim), jnp.float32
-    )
-    res = aehmc_tpu.sample(
-        jax.random.PRNGKey(1), logprob_fn, q0,
-        num_samples=8, num_warmup=8,
-        algorithm="meads", path="fused",
-        data=[var.reshape(-1, 1)], potential_fn_t=potential_t,
-        block_chains=4, interpret=True, use_internal_prng=False,
-        checkpoint_every=4, checkpoint_path=str(tmp_path / "run.npz"),
-    )
-    assert res.positions.shape == (8, chains, dim)
-    assert np.isfinite(np.asarray(res.positions)).all()
-
-
-def test_fused_mala_route():
-    """algorithm='mala', path='fused' runs the GHMC megakernel at
-    alpha=0 (ops/fused_driver.sample_fused_mala) and returns the
-    standard SampleResult contract."""
-    var = np.asarray([0.5, 2.0, 1.0, 4.0], np.float32)
-    chains, dim = 16, var.size
-    q0 = jax.random.normal(
-        jax.random.PRNGKey(0), (chains, dim), jnp.float32
-    ) * jnp.sqrt(jnp.asarray(var))
-
-    def potential_t(q_t, var_col):
-        return 0.5 * jnp.sum(q_t * q_t / var_col, axis=0)
-
-    res = aehmc_tpu.sample(
-        jax.random.PRNGKey(3), None, q0,
-        num_samples=40, num_warmup=40,
-        algorithm="mala", path="fused",
-        data=[var.reshape(-1, 1)], potential_fn_t=potential_t,
-        block_chains=chains, use_internal_prng=False, interpret=True,
-        segment_draws=8,
-    )
-    assert res.positions.shape == (40, chains, dim)
-    assert res.final_state.shape == (chains, dim)
-    assert float(jnp.mean(res.diagnostics.acceptance_probability)) > 0.3
-    assert res.step_size.shape == ()
-    assert res.inverse_mass_matrix.shape == (dim,)
-    # MALA runs exactly one gradient per draw
-    assert int(res.diagnostics.num_integration_steps[0, 0]) == 1
-
-
-def test_fused_mala_route_rejects_mesh():
-    q0 = jnp.zeros((4, 2), jnp.float32)
-
-    class FakeMesh:
-        pass
-
-    with pytest.raises(ValueError, match="single-host"):
+@pytest.mark.parametrize("algorithm", aehmc_tpu.api.ALGORITHMS)
+def test_kernel_path_is_gone(algorithm):
+    """The hand-written kernel route lost its H100 A/B and was removed:
+    path='fused' is refused with a message naming the measured paths."""
+    with pytest.raises(ValueError, match="no kernel route"):
         aehmc_tpu.sample(
-            jax.random.PRNGKey(0), None, q0, 4, 4,
-            algorithm="mala", path="fused", mesh=FakeMesh(),
-            potential_fn_t=lambda q_t: 0.5 * jnp.sum(q_t * q_t, axis=0),
+            jax.random.PRNGKey(0), logprob_fn, _chain_batch(),
+            num_samples=4, num_warmup=4, algorithm=algorithm, path="fused",
         )

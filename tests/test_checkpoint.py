@@ -64,7 +64,9 @@ def test_resume_continues_bitwise(tmp_path):
     np.testing.assert_array_equal(full, resumed)
 
 
-@pytest.mark.parametrize("algorithm", ["nuts", "chees", "meads"])
+@pytest.mark.parametrize(
+    "algorithm", ["nuts", "hmc", "mala", "ghmc", "chees", "meads"]
+)
 def test_sample_sharded_warmup_checkpoint_resume(tmp_path, algorithm):
     """A run killed MID-WARMUP resumes from the last warmup snapshot
     (no restart) and reproduces the uninterrupted checkpointed run bit
@@ -117,7 +119,9 @@ def test_sample_sharded_warmup_checkpoint_resume(tmp_path, algorithm):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("algorithm", ["nuts", "ghmc", "chees", "meads"])
+@pytest.mark.parametrize(
+    "algorithm", ["nuts", "hmc", "mala", "ghmc", "chees", "meads"]
+)
 def test_sample_sharded_checkpoint_resume(tmp_path, algorithm):
     """Driver-integrated checkpointing: a run killed mid-sampling and
     resumed reproduces the uninterrupted run bit-for-bit (same mesh) —
@@ -197,68 +201,6 @@ def test_orbax_roundtrip_pytree(tmp_path):
     restored = checkpoint.restore(path, jax.tree_util.tree_map(jnp.zeros_like, state))
     np.testing.assert_array_equal(restored["position"], state["position"])
     assert int(restored["step"]) == 7
-
-
-def test_sample_sharded_fused_chees_checkpoint_resume(tmp_path):
-    """The FUSED ChEES megakernel under the pooled driver's full
-    checkpoint machinery (chees_kernel_fn=): killed mid-sampling and
-    resumed == uninterrupted, bitwise, with the kernel running
-    per-device under shard_map on the virtual mesh."""
-    from aehmc_tpu.ops.chees_fused import make_fused_chees_kernel
-    from aehmc_tpu.parallel import sample_sharded
-    from aehmc_tpu.parallel.mesh import make_mesh
-
-    logprob_fn = std_normal()
-    chains, dim = 16, 2
-    mesh = make_mesh()
-    var = jnp.ones((dim, 1), jnp.float32)
-
-    def potential_t(q_t, var_col):
-        return 0.5 * jnp.sum(q_t * q_t / var_col, axis=0)
-
-    kernel_fn = make_fused_chees_kernel(
-        potential_t, [var], block_chains=2, interpret=True,
-        use_internal_prng=False, mesh=mesh, num_chains=chains,
-    )
-    key = jax.random.PRNGKey(15)
-    qs = jax.random.normal(
-        jax.random.PRNGKey(16), (chains, dim)
-    ).astype(jnp.float32)  # the Pallas kernel is f32
-    common = dict(
-        num_samples=20,
-        # ChEES dual averaging oscillates hard in its first ~40 steps
-        # (the mu=log(10*eps0) shrink point); 60 steps converge
-        num_warmup=60,
-        algorithm="chees",
-        chees_kernel_fn=kernel_fn,
-        checkpoint_every=10,
-        mesh=mesh,
-    )
-
-    full = sample_sharded(
-        key, logprob_fn, qs,
-        checkpoint_path=str(tmp_path / "full.npz"), **common,
-    )
-    path = str(tmp_path / "run.npz")
-    crashed = sample_sharded(
-        key, logprob_fn, qs,
-        checkpoint_path=path, _crash_after_segments=1, **common,
-    )
-    assert crashed is None
-    resumed = sample_sharded(
-        key, logprob_fn, qs, checkpoint_path=path, resume=True, **common,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(full.positions), np.asarray(resumed.positions)
-    )
-    assert float(full.step_size) == float(resumed.step_size)
-    # smoke: the fused kernel produced finite, sane outputs (statistical
-    # health of the kernel is gated in test_chees_fused and on-chip;
-    # with a 60-step warmup on 16 chains the tuned eps is luck-of-the-
-    # draw, as for the XLA chees checkpoint tests above)
-    accept = np.asarray(full.diagnostics.acceptance_probability)
-    assert np.isfinite(accept).all() and accept.max() > 0.0
-    assert np.isfinite(np.asarray(full.positions)).all()
 
 
 def _assert_result_bitwise(a, b):
@@ -348,50 +290,3 @@ def test_sample_sharded_warmup_checkpoint_resume_cross_mesh(tmp_path):
         checkpoint_path=path, resume=True, **common,
     )
     _assert_result_bitwise(full, resumed)
-
-
-def test_fused_adaptive_checkpoint_resume_cross_mesh(tmp_path):
-    """The fused megakernel driver's snapshot re-shards too: killed
-    mid-sampling on the 8-device mesh, resumed on 4 devices (same
-    block_chains, so the GLOBAL-block PRNG seed offsets are unchanged) —
-    bitwise vs the uninterrupted 8-device run."""
-    from aehmc_tpu.ops.fused_driver import sample_fused_adaptive
-    from aehmc_tpu.parallel.mesh import make_mesh
-
-    chains, dim = 16, 2
-    var = jnp.ones((dim, 1), jnp.float32)
-
-    def potential_t(q_t, var_col):
-        return 0.5 * jnp.sum(q_t * q_t / var_col, axis=0)
-
-    qs = jax.random.normal(
-        jax.random.PRNGKey(26), (chains, dim)
-    ).astype(jnp.float32)
-    common = dict(
-        num_samples=20,
-        num_warmup=30,
-        potential_fn_t=potential_t,
-        max_num_expansions=3,
-        block_chains=2,
-        use_internal_prng=False,
-        interpret=True,
-        checkpoint_every=10,
-    )
-    key = jax.random.PRNGKey(25)
-
-    full = sample_fused_adaptive(
-        key, None, [var], qs, mesh=make_mesh(),
-        checkpoint_path=str(tmp_path / "full.npz"), **common,
-    )
-    path = str(tmp_path / "run.npz")
-    crashed = sample_fused_adaptive(
-        key, None, [var], qs, mesh=make_mesh(),
-        checkpoint_path=path, _crash_after_segments=1, **common,
-    )
-    assert crashed is None
-    resumed = sample_fused_adaptive(
-        key, None, [var], qs, mesh=make_mesh(4),
-        checkpoint_path=path, resume=True, **common,
-    )
-    for x, y in zip(full, resumed):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))

@@ -115,48 +115,3 @@ def test_chees_statistical_correctness():
     np.testing.assert_allclose(pooled.var(axis=0), scale**2, rtol=0.2)
     corr = np.corrcoef(pooled.T)[0, 1]
     assert corr == pytest.approx(rho, abs=0.1)
-
-
-def test_integrate_fn_override_matches_default():
-    """ChEES with a fused whole-trajectory integrator (here the lax
-    logistic oracle) must behave like the default autodiff loop."""
-    import numpy as np
-
-    from aehmc_tpu.ops.fused_hmc import fused_logistic_hmc_reference
-
-    rng = np.random.default_rng(0)
-    dim, n_points = 4, 64
-    X = jnp.asarray(rng.normal(size=(n_points, dim)) / np.sqrt(dim))
-    y = jnp.asarray((rng.uniform(size=n_points) < 0.5).astype(np.float64))
-
-    def logprob_fn(w):
-        logits = X @ w
-        return jnp.sum(y * logits - jax.nn.softplus(logits)) - 0.5 * jnp.sum(
-            w**2
-        )
-
-    imm = jnp.ones(dim)
-    integrate_fn = (  # noqa: E731
-        lambda q, p, eps, L, im: fused_logistic_hmc_reference(
-            q, p, X, y, im, eps, L
-        )
-    )
-
-    states = _init_states(logprob_fn, 16, dim)
-    k_default = chees.new_kernel(logprob_fn)
-    k_fused = chees.new_kernel(logprob_fn, integrate_fn=integrate_fn)
-
-    out_d, info_d = k_default(
-        jax.random.PRNGKey(3), states, jnp.asarray(0.1), 7, imm
-    )
-    out_f, info_f = k_fused(
-        jax.random.PRNGKey(3), states, jnp.asarray(0.1), 7, imm
-    )
-    # identical keys + identical dynamics => identical transitions
-    np.testing.assert_allclose(out_f.position, out_d.position, rtol=1e-9)
-    np.testing.assert_allclose(
-        info_f.acceptance_probability, info_d.acceptance_probability, rtol=1e-9
-    )
-    np.testing.assert_allclose(
-        info_f.proposed_velocity, info_d.proposed_velocity, rtol=1e-9
-    )

@@ -189,7 +189,7 @@ def test_rank_normalize_finite_beyond_f32_quantile_resolution():
     """Once the pooled draw count passes ~2^23, the direct upper-tail
     Blom quantile sits within f32 eps of 1.0 and can round to exactly
     1.0 (backend-dependent), sending norm.ppf to +inf and NaN-poisoning
-    the dimension's bulk ESS (observed on TPU at 10k chains x 800
+    the dimension's bulk ESS (observed on an accelerator at 10k chains x 800
     draws).  The mirrored-rank evaluation must stay finite and the ESS
     positive at any size."""
     from aehmc_tpu.diagnostics import _rank_normalize

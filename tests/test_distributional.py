@@ -7,7 +7,7 @@ each chain is thinned to near-independence before testing; the significance
 level is conservative (p > 1e-3).
 
 Every gate runs at f64 (the reference's test policy, ref conftest.py:4-10)
-and f32 (the production TPU dtype — mirrors the reference's float32 sweep
+and f32 (the production accelerator dtype — mirrors the reference's float32 sweep
 hook, ref .github/workflows/test.yml:114-116).
 """
 

@@ -46,77 +46,6 @@ def test_eight_schools_posterior():
     assert div_rate < 0.02
 
 
-def test_eight_schools_fused_matches_xla():
-    """Matched-prior cross-path gate: the transposed megakernel's
-    eight-schools potential (models/hierarchical.py eight_schools_t) is
-    the SAME density as the XLA-path logprob (same N(0,5) priors on mu
-    and log_tau, same non-centered likelihood) — a long run down each
-    path must agree on the posterior summaries.  This pins the fused
-    self-tuning driver against the oracle-validated XLA path on a real
-    hierarchical posterior, with no prior swap."""
-    from aehmc_tpu.models import eight_schools_t
-    from aehmc_tpu.ops.fused_driver import sample_fused_adaptive
-
-    # --- XLA path (suite dtype, pooled warmup) ---
-    logprob_fn, q0 = eight_schools(non_centered=True)
-    chains_x = 32
-    init = jnp.tile(q0, (chains_x, 1)) + 0.1 * jax.random.normal(
-        jax.random.PRNGKey(4), (chains_x, 10), q0.dtype
-    )
-    res_xla = sample_sharded(
-        jax.random.PRNGKey(5),
-        logprob_fn,
-        init,
-        num_samples=800,
-        num_warmup=400,
-        target_acceptance_rate=0.9,
-    )
-    xla = np.asarray(res_xla.positions).reshape(-1, 10)
-
-    # --- fused self-tuning megakernel (interpret mode, external PRNG) ---
-    potential_t, data, q0t = eight_schools_t()
-    chains_f = 64
-    q0f = jnp.tile(q0t, (chains_f, 1)).astype(
-        jnp.float32
-    ) + 0.1 * jax.random.normal(
-        jax.random.PRNGKey(6), (chains_f, 10), jnp.float32
-    )
-    _, pos_f, stats_f, eps_f, _ = sample_fused_adaptive(
-        jax.random.PRNGKey(7),
-        None,
-        list(data),
-        q0f,
-        num_samples=500,
-        num_warmup=300,
-        potential_fn_t=potential_t,
-        max_num_expansions=6,
-        block_chains=chains_f,
-        initial_step_size=0.2,
-        target_acceptance_rate=0.9,
-        use_internal_prng=False,
-        interpret=True,
-    )
-    fused = np.asarray(pos_f)[100:].reshape(-1, 10)
-    # divergences are rare but not impossible at a 0.9 target
-    assert np.asarray(stats_f)[:, :, 4].mean() < 0.002
-
-    mu_x, mu_f = xla[:, 0], fused[:, 0]
-    tau_x, tau_f = np.exp(xla[:, 1]), np.exp(fused[:, 1])
-    assert abs(mu_x.mean() - mu_f.mean()) < 1.5, (
-        mu_x.mean(), mu_f.mean(),
-    )
-    assert abs(mu_x.std() / mu_f.std() - 1.0) < 0.3
-    assert abs(np.median(tau_x) / np.median(tau_f) - 1.0) < 0.4, (
-        np.median(tau_x), np.median(tau_f),
-    )
-    # per-school posterior means (theta = mu + tau * theta_raw)
-    th_x = xla[:, 0:1] + np.exp(xla[:, 1:2]) * xla[:, 2:]
-    th_f = fused[:, 0:1] + np.exp(fused[:, 1:2]) * fused[:, 2:]
-    np.testing.assert_allclose(
-        th_x.mean(axis=0), th_f.mean(axis=0), atol=2.0
-    )
-
-
 def test_funnel_wide_v_marginal():
     """The funnel's v-marginal is N(0, 3^2); with a high acceptance target
     the sampler must cover at least the bulk (|v| < 2 sigma both sides)."""

@@ -50,7 +50,7 @@ def multivariate_normal_model(dtype=None):
 
 
 # The statistical gates run at both f64 (the reference's test policy, ref
-# conftest.py:4-10) and f32 (the production TPU dtype — mirrors the
+# conftest.py:4-10) and f32 (the production accelerator dtype — mirrors the
 # reference's float32 sweep hook, ref .github/workflows/test.yml:114-116).
 DTYPES = [jnp.float64, jnp.float32]
 

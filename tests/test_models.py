@@ -102,3 +102,69 @@ def test_eight_schools_finite_and_informative():
     # pulling mu toward the data mean increases the posterior
     better = q0.at[0].set(8.0)
     assert float(lp(better)) > float(lp(q0.at[0].set(-20.0)))
+
+
+def _np_reference(name):
+    """Float64 NumPy log densities (up to a constant) of the built-ins."""
+    from aehmc_tpu.models import logistic_regression_data
+
+    if name == "funnel":
+        def ref(q):
+            v, x = q[0], q[1:]
+            return -(0.5 * (v / 3.0) ** 2 + 0.5 * np.sum(x * x) * np.exp(-v)
+                     + (q.size - 1) * 0.5 * v)
+        return neals_funnel(10)[0], ref, 10
+    if name == "eight_schools":
+        y = np.asarray([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
+        sig = np.asarray([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
+
+        def ref(q):
+            mu, lt, tr = q[0], q[1], q[2:]
+            theta = mu + np.exp(lt) * tr
+            return -(0.5 * (mu / 5) ** 2 + 0.5 * (lt / 5) ** 2 - lt
+                     + 0.5 * np.sum(tr * tr)
+                     + 0.5 * np.sum((y - theta) ** 2 / sig**2))
+        return eight_schools()[0], ref, 10
+    if name == "logistic":
+        X, y = (np.asarray(a, np.float64)
+                for a in logistic_regression_data(6, 50))
+
+        def ref(q):
+            logits = X @ q
+            return np.sum(y * logits - np.logaddexp(0.0, logits)) - 0.5 * q @ q
+        return logistic_regression(dim=6, num_points=50)[0], ref, 6
+    return correlated_mvn(3, 0.4), None, 3
+
+
+@pytest.mark.parametrize(
+    "name", ["funnel", "eight_schools", "logistic", "mvn"]
+)
+def test_logprob_matches_numpy_reference_up_to_constant(name):
+    logprob_fn, ref, dim = _np_reference(name)
+    qs = np.random.default_rng(0).normal(size=(5, dim)) * 0.5
+    got = np.asarray([float(logprob_fn(jnp.asarray(q))) for q in qs])
+    if ref is None:  # equicorrelated MVN: the closed-form quadratic form
+        cov = np.full((dim, dim), 0.4)
+        np.fill_diagonal(cov, 1.0)
+        prec = np.linalg.inv(cov)
+        want = np.asarray([-0.5 * q @ prec @ q for q in qs])
+    else:
+        want = np.asarray([ref(q) for q in qs])
+    diff = got - want
+    np.testing.assert_allclose(diff, diff[0], atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "name", ["funnel", "eight_schools", "logistic", "mvn"]
+)
+def test_logprob_gradient_matches_finite_differences(name):
+    logprob_fn, _, dim = _np_reference(name)
+    q = jnp.asarray(np.random.default_rng(1).normal(size=dim) * 0.5)
+    g = np.asarray(jax.grad(logprob_fn)(q))
+    h = 1e-6
+    fd = np.asarray([
+        (float(logprob_fn(q.at[i].add(h))) - float(logprob_fn(q.at[i].add(-h))))
+        / (2 * h)
+        for i in range(dim)
+    ])
+    np.testing.assert_allclose(g, fd, rtol=1e-5, atol=1e-6)

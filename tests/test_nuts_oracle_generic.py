@@ -1,7 +1,7 @@
 """Differential tests: the GENERIC XLA NUTS path vs the NumPy oracle.
 
-Round 1 oracle-validated only the fused Pallas kernel; these tests point the
-same oracle (:mod:`aehmc_tpu.ops.nuts_oracle`) at the production path —
+These tests point the oracle (:mod:`aehmc_tpu.ops.nuts_oracle`) at the
+production path —
 ``trajectory.dynamic_integration`` (+ paired variant) composed by
 ``nuts.new_externalized_kernel``, which takes every random input (momentum,
 directions, biased-resample uniforms, per-leaf uniforms) as arguments.  Both

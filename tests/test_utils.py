@@ -1,8 +1,11 @@
 """Tests of RaveledParamsMap (mirrors ref tests/test_utils.py round-trip and
 dtype-preservation checks)."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from aehmc_tpu.utils import RaveledParamsMap
 
@@ -69,3 +72,42 @@ def test_logprob_through_map():
     value, grad = jax.value_and_grad(logprob_fn)(jnp.asarray([1.0, 2.0, 3.0]))
     assert float(value) == -0.5 * (1 + 4) - 0.5 * 9
     np.testing.assert_allclose(grad, [-1.0, -2.0, -3.0])
+
+
+@pytest.fixture
+def _restore_cache_config():
+    import jax
+
+    saved = (jax.config.jax_compilation_cache_dir,
+             jax.config.jax_persistent_cache_min_compile_time_secs)
+    yield
+    jax.config.update("jax_compilation_cache_dir", saved[0])
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", saved[1])
+
+
+def test_compilation_cache_follows_the_environment(
+    tmp_path, monkeypatch, _restore_cache_config
+):
+    import jax
+
+    from aehmc_tpu.utils import enable_compilation_cache
+
+    target = tmp_path / "cache"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+    assert enable_compilation_cache() == str(target)
+    assert target.is_dir()
+    assert jax.config.jax_compilation_cache_dir == str(target)
+
+
+def test_compilation_cache_defaults_to_the_checkout(
+    monkeypatch, _restore_cache_config
+):
+    import jax
+
+    from aehmc_tpu.utils import enable_compilation_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = enable_compilation_cache()
+    assert path == os.path.join(root, ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == path

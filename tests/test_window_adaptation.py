@@ -16,7 +16,7 @@ from tests.test_hmc import DTYPES
 def test_warmup_scalar(dtype):
     """Univariate N(1, 2^2): scalar mass matrix (ref tests/test_hmc.py:13-52).
 
-    Runs at f64 (the reference's test policy) and f32 (the production TPU
+    Runs at f64 (the reference's test policy) and f32 (the production GPU
     dtype) — the tuned step size and mass matrix must pass the same quality
     gates at both.
     """

@@ -2,8 +2,7 @@
 
 CI declares ruff + mypy (.github/workflows/test.yml), but neither is
 installed in the benchmark environment and there is no network to fetch
-them (round-3 VERDICT weak #6: the gates were unexecutable, so
-"type-checks clean" had no artifact).  This module is the executable
+them.  This module is the executable
 stand-in: a small AST linter covering the highest-signal pyflakes/ruff
 checks, run via ``python tools/lint.py`` or the ``lint_gates`` benchmark
 config, which records pass/fail in the results log.
@@ -28,7 +27,7 @@ from pathlib import Path
 
 MAX_LINE = 88
 TARGETS = ("aehmc_tpu", "tests", "benchmarks", "tools", "examples",
-           "bench.py", "__graft_entry__.py")
+           "bench.py", "chip_smoke.py", "__graft_entry__.py")
 
 
 def _noqa_lines(path):
